@@ -1,0 +1,104 @@
+"""Builds and loads the port's CUDA kernel library.
+
+The `jen1_tpu_torch/csrc/*.cu` sources are compiled by one `nvcc` call for
+sm_90a straight into one shared library with a plain C interface, which is
+loaded with ctypes. The library goes
+into `build/jen1_tpu_torch/<hash of sources and flags>/` at the repository
+root (listed in .gitignore), so a changed source rebuilds and an unchanged
+one loads the cached build. Nothing is built at import: the first call to
+`library()` builds. A missing `nvcc` is an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List, Optional
+
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "jen1_tpu_torch"
+LIB_NAME = "libjen1_tpu_torch_kernels.so"
+COMPILE_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    path: Path
+    seconds: float  # wall of this call's build; 0.0 when the cache was hit
+    log: str  # nvcc output, including `-Xptxas -v` register/smem use
+
+
+_LIB: Optional[ctypes.CDLL] = None
+_BUILD: Optional[BuildInfo] = None
+
+
+def sources() -> List[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile the library unless a build of the same sources exists."""
+    global _BUILD
+    if _BUILD is not None:
+        return _BUILD
+    srcs = sources()
+    out_dir = BUILD_ROOT / _digest(srcs)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        _BUILD = BuildInfo(lib, 0.0, "")
+        return _BUILD
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / LIB_NAME
+        proc = subprocess.run(
+            [nvcc, *COMPILE_FLAGS, *map(str, srcs), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+        os.replace(tmp_lib, lib)
+    _BUILD = BuildInfo(lib, time.perf_counter() - t0, proc.stdout)
+    return _BUILD
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn = lib.jen1_flash_attention_fwd
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,32 @@
+"""Mixed-precision Linear (port of jen1_tpu/ops/linear.py).
+
+The weight is stored fp32 and cast to the activation dtype at use; the
+product accumulates in fp32 (cuBLAS does so for bf16 inputs).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jen1_tpu_torch.ops.initializers import torch_uniform_
+
+
+class Linear(nn.Module):
+    """torch.nn.Linear semantics and init; weight (out, in)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    def init_parameters(self, generator):
+        torch_uniform_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            torch_uniform_(self.bias, self.in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
