@@ -1,28 +1,77 @@
 """Configuration dataclasses (port of jen1_tpu/config.py).
 
-A copy of the fields the generation slice reads, with the same names and
-defaults as the JAX package, plus the `longform_config()` and
-`tiny_test_config()` presets. JSON round-tripping is not ported yet.
+A copy of the fields the generation and training slices read, with the same
+names and defaults as the JAX package, the JSON round trip of
+`jen1_tpu/config.py:318-381` (a JSON written by the JAX `Config.to_json()`
+loads; keys the port does not know are ignored, as there) and the
+`longform_config()` and `tiny_test_config()` presets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclass
+class DataConfig:
+    """jen1_tpu/config.py:17-46."""
+
+    dataset_dir: str = ""
+    sr: int = 48_000
+    channels: int = 2
+    min_duration: float = 0.0  # seconds
+    max_duration: float = 300.0  # seconds
+    sample_duration: float = 10.0  # seconds; sets the latent length (150 fps)
+    aug_shift: bool = True
+    batch_size: int = 3  # must be divisible by the number of tasks
+    shuffle: bool = True
+    train_test_split: float = 0.5
+    durations_path: Optional[str] = None
+    cumsum_path: Optional[str] = None
+    audio_file_txt_path: Optional[str] = None
+    latents_dir: Optional[str] = None  # precomputed <name>.npy latents
+    num_workers: int = 0
+    # host -> device dtype of the latent batch: 'float32' or 'bfloat16'
+    latents_upload_dtype: str = "float32"
+
+
+@dataclass
+class GDMConfig:
+    """Discrete Gaussian diffusion (jen1_tpu/config.py:49-78)."""
+
+    steps: int = 1000
+    noise_schedule: str = "linear"  # 'linear' | 'cosine'
+    objective: str = "v"  # 'noise' | 'x0' | 'v'
+    loss_type: str = "l2"  # 'l1' | 'l2'
+    cfg_dropout_proba: float = 0.2
+    embedding_scale: float = 0.8
+    batch_cfg: bool = True
+    scale_cfg: bool = True
+    ddim_sampling_eta: float = 1.0
+    uniform_noise_compat: bool = False
+    dropout_during_sampling: bool = False
+    sampling_timesteps: Optional[int] = None
 
 
 @dataclass
 class VDMConfig:
     """Continuous-time trig-schedule v-diffusion (jen1_tpu/config.py:82-94)."""
 
+    loss_type: str = "l2"
+    cfg_dropout_proba: float = 0.2
     embedding_scale: float = 0.8
     batch_cfg: bool = True
     scale_cfg: bool = True
+    xt_target_compat: bool = False
+    uniform_noise_compat: bool = False
 
 
 @dataclass
 class DiffusionConfig:
+    gaussian_diffusion: GDMConfig = field(default_factory=GDMConfig)
     variational_diffusion: VDMConfig = field(default_factory=VDMConfig)
 
 
@@ -52,10 +101,30 @@ class ModelConfig:
     attention_heads: int = 8
     attention_features: Optional[int] = None
     attention_multiplier: int = 1
+    n_tracks: int = 1  # Composer channel groups; 1 = single-track JEN-1
     dtype: str = "bfloat16"  # compute dtype; params are always fp32
     use_flash_attention: bool = True
     flash_min_seq_len: int = 1024
     tie_transformer_projections: bool = False
+
+
+@dataclass
+class OptimizerConfig:
+    """AdamW, clip and LinearLR warm-up (jen1_tpu/config.py:152-183)."""
+
+    lr: float = 3e-5
+    beta_1: float = 0.9
+    beta_2: float = 0.95
+    weight_decay: float = 0.1
+    grad_clip: float = 0.7
+    # torch LinearLR defaults: warm from lr*start_factor to lr*end_factor
+    # over total_iters optimizer steps
+    lr_start_factor: float = 1.0 / 3.0
+    lr_end_factor: float = 1.0
+    lr_total_iters: int = 5
+    skip_nonfinite_updates: bool = True
+    flatten_optimizer: bool = False
+    fused_adamw: bool = True  # used when grad_accum_every == 1
 
 
 @dataclass
@@ -75,19 +144,108 @@ class ConditionerConfig:
 
 
 @dataclass
-class Config:
-    """Root config: the subset of jen1_tpu.config.Config that generation reads."""
+class ParallelConfig:
+    """Device-mesh layout (jen1_tpu/config.py:235-252). The port runs on one
+    device; the trainer CLI refuses any other layout."""
 
+    dp: int = -1
+    tp: int = 1
+    sp: int = 1
+    fsdp: bool = False
+
+
+@dataclass
+class LoraConfig:
+    """LoRA finetuning (jen1_tpu/config.py:255-270); rank 0 disables it.
+    Not ported yet: the trainer refuses rank > 0, so the adapter settings
+    are not kept."""
+
+    rank: int = 0
+
+
+@dataclass
+class Config:
+    """Root config: the fields of jen1_tpu.config.Config that the port reads."""
+
+    save_dir: str = ""
+    log_dir: str = ""
+    use_ema: bool = False
+    ema_decay: float = 0.999
     seed: int = 4996
+    tasks: Tuple[str, ...] = ("text_guided", "music_inpaint", "music_cont")
+    num_epoch: int = 100
+    eval_interval: int = 30
+    grad_accum_every: int = 10
+    diffusion_type: str = "gdm"  # 'gdm' | 'vdm'
+    dataset_config: DataConfig = field(default_factory=DataConfig)
     diffusion_config: DiffusionConfig = field(default_factory=DiffusionConfig)
     model_config: ModelConfig = field(default_factory=ModelConfig)
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
     conditioner_config: ConditionerConfig = field(default_factory=ConditionerConfig)
+    parallel_config: ParallelConfig = field(default_factory=ParallelConfig)
+    lora_config: LoraConfig = field(default_factory=LoraConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self, path: Optional[str] = None) -> str:
+        text = json.dumps(self.to_dict(), indent=2, default=str)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        return _dataclass_from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def override(self, **dotted: Any) -> "Config":
+        """Dotted-path overrides, e.g. override(**{"model_config.channels": 64})."""
+        d = self.to_dict()
+        for key, value in dotted.items():
+            node = d
+            parts = key.split(".")
+            for p in parts[:-1]:
+                node = node[p]
+            node[parts[-1]] = value
+        return Config.from_dict(d)
+
+
+def _dataclass_from_dict(cls, d):
+    """Build `cls` from a dict: nested dataclasses recurse, JSON lists become
+    tuples where the field is a tuple, unknown keys are ignored."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        value = d[f.name]
+        ftype = _resolve(f.type)
+        if dataclasses.is_dataclass(ftype) and isinstance(value, dict):
+            kwargs[f.name] = _dataclass_from_dict(ftype, value)
+        elif isinstance(value, list) and str(f.type).startswith(("Tuple", "typing.Tuple")):
+            kwargs[f.name] = tuple(value)
+        else:
+            kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+def _resolve(tp):
+    """A dataclass named by a string annotation (`from __future__ import
+    annotations`), else the annotation itself."""
+    if isinstance(tp, str):
+        return globals().get(tp.split("[")[0], tp)
+    return tp
 
 
 def longform_config() -> Config:
     """Long-form preset: attention at level 1 (downsample 4), where a 30 s
     clip attends over 4500 / 4 = 1125 frames, above `flash_min_seq_len`, so
-    the flash-attention kernel runs (jen1_tpu/config.py:413-433)."""
+    the flash-attention kernels run (jen1_tpu/config.py:413-433)."""
     cfg = Config()
     mc = cfg.model_config
     cfg.model_config = dataclasses.replace(
@@ -118,5 +276,10 @@ def tiny_test_config() -> Config:
         dtype="float32",
         use_flash_attention=False,
     )
+    cfg.diffusion_config.gaussian_diffusion.steps = 8
+    # the linear schedule overflows beta <= 1 at tiny step counts
+    cfg.diffusion_config.gaussian_diffusion.noise_schedule = "cosine"
     cfg.conditioner_config.cond_dim = 16
+    cfg.dataset_config.batch_size = 3
+    cfg.grad_accum_every = 1
     return cfg

@@ -3,19 +3,23 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` driven by `_flash_forward_lse`
 // (jen1_tpu/ops/flash_attention.py:45-167). What it computes is the same:
-// S = Q K^T * D^-1/2 with fp32 running max m, sum l and accumulator, key
+// S = Q K^T * sm_scale with fp32 running max m, sum l and accumulator, key
 // columns >= N masked, an optional causal mask (col <= row), O = acc / l in
 // q's dtype and lse = m + log(l) in fp32. What it does not carry over: the
 // TPU kernel's sequential third grid axis over K/V tiles and its padded
-// copies of q/k/v. Here one CTA owns one (batch*head, 64-row q tile) and
+// copies of q/k/v. Here one CTA owns one (batch*head, ROWS-row q tile) and
 // loops over K/V tiles staged in shared memory; the ragged edge is masked
 // in place, and causal CTAs stop at the diagonal tile.
 //
 // Layout: q, k, v, o are contiguous (B*H, N, D); lse is (B*H, N) fp32.
+// D is one of 16, 32, 64, 128, 256: the wrapper zero-pads other head dims
+// up to the next of these and passes the original D^-1/2 as sm_scale.
 // Thread mapping: TPR threads share one query row; thread s of the row owns
 // the head dims d = s + TPR*i, so a warp reading one K/V row from shared
 // memory touches consecutive banks. The row's partial dot products are
-// summed with warp shuffles.
+// summed with warp shuffles. The K/V tile is dynamic shared memory; above
+// 48 KB (D = 256) the launch first raises the kernel's limit, and a launch
+// that still does not fit fails and is reported, never run.
 //
 // Bound at the generation slice's shape (B*H = 16, N = 1125, D = 16, bf16,
 // two launches per UNet forward): 4*B*H*N^2*D = 1.30 GFLOP -> 1.31 us at
@@ -32,8 +36,9 @@
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -47,19 +52,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int D, int TPR, int BLOCK_K>
-__global__ void __launch_bounds__(BLOCK_Q * TPR)
+// Tiling per head dim: TPR threads per row, ROWS rows per CTA (ROWS*TPR
+// threads), BLOCK_K keys per shared-memory tile.
+template <int D>
+struct Tiles {
+  static constexpr int TPR = D >= 256 ? 16 : (D >= 128 ? 8 : (D >= 64 ? 4 : 2));
+  static constexpr int ROWS = D >= 256 ? 32 : 64;
+  static constexpr int BLOCK_K = D >= 128 ? 32 : 64;
+};
+
+template <typename T, int D, int TPR, int ROWS, int BLOCK_K>
+__global__ void __launch_bounds__(ROWS * TPR)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int n, float scale_log2, int causal) {
   constexpr int DPT = D / TPR;  // head dims per thread
-  constexpr int NT = BLOCK_Q * TPR;
-  __shared__ float ks[BLOCK_K][D];
-  __shared__ float vs[BLOCK_K][D];
+  constexpr int NT = ROWS * TPR;
+  extern __shared__ float smem[];
+  float (*ks)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*vs)[D] = reinterpret_cast<float (*)[D]>(smem + BLOCK_K * D);
 
   const int tid = threadIdx.x;
   const int s = tid % TPR;
-  const int q0 = blockIdx.x * BLOCK_Q;
+  const int q0 = blockIdx.x * ROWS;
   const int row = q0 + tid / TPR;
   const size_t base = (size_t)blockIdx.y * n * D;
 
@@ -72,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // m is kept in log2 units: scores are pre-multiplied by log2(e).
   float m = -INFINITY, l = 0.f;
 
-  const int k_end = causal ? min(n, q0 + BLOCK_Q) : n;
+  const int k_end = causal ? min(n, q0 + ROWS) : n;
   for (int k0 = 0; k0 < k_end; k0 += BLOCK_K) {
     __syncthreads();  // the previous tile is fully consumed
     for (int idx = tid; idx < BLOCK_K * D; idx += NT) {
@@ -129,25 +144,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int bh, int n, int causal, cudaStream_t stream) {
-  constexpr int TPR = D >= 128 ? 8 : (D >= 64 ? 4 : 2);
-  constexpr int BLOCK_K = D >= 128 ? 32 : 64;
-  const float scale_log2 = rsqrtf((float)D) * 1.4426950408889634f;
-  const dim3 grid((n + BLOCK_Q - 1) / BLOCK_Q, bh);
-  flash_fwd_kernel<T, D, TPR, BLOCK_K><<<grid, BLOCK_Q * TPR, 0, stream>>>(
+                   int bh, int n, int causal, float sm_scale, cudaStream_t stream) {
+  using Tl = Tiles<D>;
+  auto kernel = flash_fwd_kernel<T, D, Tl::TPR, Tl::ROWS, Tl::BLOCK_K>;
+  const int smem = 2 * Tl::BLOCK_K * D * (int)sizeof(float);
+  if (smem > STATIC_SMEM_LIMIT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((n + Tl::ROWS - 1) / Tl::ROWS, bh);
+  kernel<<<grid, Tl::ROWS * Tl::TPR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), n, scale_log2, causal);
+      static_cast<T*>(o), static_cast<float*>(lse), n, sm_scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int bh, int n, int d, int causal, cudaStream_t stream) {
+                       int bh, int n, int d, int causal, float sm_scale,
+                       cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, n, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, n, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, n, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, n, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, n, causal, sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, n, causal, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, n, causal, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, n, causal, sm_scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, bh, n, causal, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -155,14 +177,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); does
-// not synchronise. dtype: 0 = float32, 1 = bfloat16.
+// not synchronise. dtype: 0 = float32, 1 = bfloat16. sm_scale multiplies
+// the logits (D^-1/2 of the head dim before any padding).
 extern "C" int jen1_flash_attention_fwd(const void* q, const void* k, const void* v,
                                         void* o, void* lse, int bh, int n, int d,
-                                        int dtype, int causal, void* stream) {
+                                        int dtype, int causal, float sm_scale,
+                                        void* stream) {
   if (bh < 1 || bh > 65535 || n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(q, k, v, o, lse, bh, n, d, causal, st);
+  if (dtype == 0)
+    return (int)dispatch_d<float>(q, k, v, o, lse, bh, n, d, causal, sm_scale, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, n, d, causal, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, n, d, causal, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,18 +1,21 @@
-"""Continuous-time trigonometric v-diffusion sampler (port of
-jen1_tpu/diffusion/vdm.py).
+"""Continuous-time trigonometric v-diffusion: sampler and training loss
+(port of jen1_tpu/diffusion/vdm.py).
 
 alpha(t) = cos(t pi/2), sigma(t) = sin(t pi/2); the deterministic v-space
 sampler walks linspace(1 -> 0, step + 1) as a Python loop. The training
-loss and the GDM/DDIM samplers are not ported yet.
+loss (vdm.py:104-139) draws t ~ U[0, 1) per example; its times, noise and
+CFG dropout bits can be handed in instead.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from jen1_tpu_torch.diffusion.gdm import noise_like
 
 ModelFn = Callable[..., torch.Tensor]
 Conditioning = Dict[str, Any]
@@ -37,15 +40,27 @@ class VDM:
     def __init__(
         self,
         *,
+        loss_type: str = "l2",
+        cfg_dropout_proba: float = 0.1,
         embedding_scale: float = 0.8,
         batch_cfg: bool = False,
         scale_cfg: bool = False,
+        uniform_noise_compat: bool = False,
+        xt_target_compat: bool = False,
     ):
+        if loss_type not in {"l1", "l2"}:
+            raise ValueError(f"loss_type must be 'l1' or 'l2', got {loss_type!r}")
+        self.loss_type = loss_type
+        self.cfg_dropout_proba = float(cfg_dropout_proba)
         self.embedding_scale = float(embedding_scale)
         self.batch_cfg = bool(batch_cfg)
         self.scale_cfg = bool(scale_cfg)
+        self.uniform_noise_compat = uniform_noise_compat
+        self.xt_target_compat = xt_target_compat
 
-    def _call_model(self, model_fn, x, t, conditioning, *, causal: bool):
+    def _call_model(self, model_fn, x, t, conditioning, *, causal: bool, **dropout):
+        """The denoiser with the CFG plumbing; `dropout` holds the training
+        call's embedding_mask_proba, generator and embedding_mask_bits."""
         concat = conditioning.get("input_concat_cond")
         return model_fn(
             x,
@@ -58,7 +73,49 @@ class VDM:
             batch_cfg=self.batch_cfg,
             scale_cfg=self.scale_cfg,
             causal=causal,
+            **dropout,
         )
+
+    def q_sample(self, x_start: torch.Tensor, times: torch.Tensor, noise: torch.Tensor):
+        """times (B,) in [0, 1] -> (x_t, alphas, sigmas), the last two
+        shaped to broadcast over x_start."""
+        shape = (-1,) + (1,) * (x_start.dim() - 1)
+        alphas, sigmas = (a.reshape(shape) for a in alpha_sigma(times))
+        return x_start * alphas + noise * sigmas, alphas, sigmas
+
+    def training_losses(
+        self,
+        model_fn: ModelFn,
+        x_start: torch.Tensor,
+        conditioning: Conditioning,
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+        times: Optional[torch.Tensor] = None,
+        cfg_bits: Optional[torch.Tensor] = None,
+        causal: bool = False,
+        reduce: str = "mean",
+    ) -> torch.Tensor:
+        """v-objective loss (vdm.py:104-139). Times, noise and CFG bits not
+        handed in are drawn from `generator`. reduce='none' returns the
+        per-example loss (B,)."""
+        b = x_start.shape[0]
+        if times is None:
+            times = torch.rand((b,), generator=generator, device=x_start.device)
+        if noise is None:
+            noise = noise_like(x_start, generator, self.uniform_noise_compat)
+        x_t, alphas, sigmas = self.q_sample(x_start, times, noise)
+        model_out = self._call_model(
+            model_fn, x_t, times, conditioning, causal=causal,
+            embedding_mask_proba=self.cfg_dropout_proba, generator=generator,
+            embedding_mask_bits=cfg_bits,
+        ).float()
+        base = x_t if self.xt_target_compat else x_start
+        target = noise * alphas - base * sigmas
+        err = model_out - target
+        dims = tuple(range(1, x_start.dim()))
+        per_ex = err.abs().mean(dims) if self.loss_type == "l1" else err.square().mean(dims)
+        return per_ex if reduce == "none" else per_ex.mean()
 
     @torch.no_grad()
     def p_sample_loop(
@@ -92,7 +149,11 @@ class VDM:
 def create_variational_diffusion(vdm_config) -> VDM:
     """Factory from a `jen1_tpu_torch.config.VDMConfig`."""
     return VDM(
+        loss_type=vdm_config.loss_type,
+        cfg_dropout_proba=vdm_config.cfg_dropout_proba,
         embedding_scale=vdm_config.embedding_scale,
         batch_cfg=vdm_config.batch_cfg,
         scale_cfg=vdm_config.scale_cfg,
+        uniform_noise_compat=vdm_config.uniform_noise_compat,
+        xt_target_compat=vdm_config.xt_target_compat,
     )

@@ -2,8 +2,7 @@
 (port of jen1_tpu/models/unet.py).
 
 Not ported yet: the encoder cache (`encoder_cache` /
-`return_encoder_cache`), STFT mode, and CFG dropout during training
-(`embedding_mask_proba > 0`).
+`return_encoder_cache`) and STFT mode.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from jen1_tpu_torch.models.blocks import (
     _AttnArgs,
     _crop_to_common_length,
 )
-from jen1_tpu_torch.ops.embeddings import FixedEmbedding, TimePositionalEmbedding
+from jen1_tpu_torch.ops.embeddings import FixedEmbedding, TimePositionalEmbedding, rand_bool
 from jen1_tpu_torch.ops.linear import Linear
 
 
@@ -228,11 +227,13 @@ class UNetCFG1d(nn.Module):
         features: Optional[torch.Tensor] = None,
         channels_list: Optional[Sequence[torch.Tensor]] = None,
         causal: bool = False,
+        generator: Optional[torch.Generator] = None,
+        embedding_mask_bits: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        if embedding_mask_proba > 0.0:
-            raise NotImplementedError(
-                "CFG dropout (embedding_mask_proba > 0) is not ported yet"
-            )
+        """CFG dropout (training): with embedding_mask_proba > 0 each
+        example's embedding is replaced by the null embedding where its bit
+        is set. The (B, 1, 1) bits are `embedding_mask_bits` when given,
+        else drawn as rand_bool(generator, (B, 1, 1), proba)."""
         b = embedding.shape[0]
         if self.to_time_embedding is not None:
             token = F.gelu(self.to_time_embedding(time.float())).to(embedding.dtype)
@@ -242,6 +243,11 @@ class UNetCFG1d(nn.Module):
                                   device=embedding_mask.device)
                 embedding_mask = torch.cat([embedding_mask, ones], dim=1)
         fixed_embedding = self.fixed_embedding(embedding)
+        if embedding_mask_proba > 0.0:
+            bits = embedding_mask_bits
+            if bits is None:
+                bits = rand_bool(generator, (b, 1, 1), embedding_mask_proba, embedding.device)
+            embedding = torch.where(bits.to(embedding.device), fixed_embedding, embedding)
         kw = dict(features=features, channels_list=channels_list, causal=causal)
 
         if embedding_scale == 1.0:

@@ -1,14 +1,29 @@
-"""Time and null-context embeddings (port of jen1_tpu/ops/embeddings.py)."""
+"""Time and null-context embeddings and the CFG dropout draw (port of
+jen1_tpu/ops/embeddings.py)."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from jen1_tpu_torch.ops.initializers import normal_
 from jen1_tpu_torch.ops.linear import Linear
+
+
+def rand_bool(
+    generator: Optional[torch.Generator], shape: Sequence[int], proba: float, device=None
+) -> torch.Tensor:
+    """Bernoulli(proba) mask of `shape` (jen1_tpu/ops/embeddings.py:18-24):
+    U[0, 1) < proba, drawn from `generator` on `device`. proba 0 and 1 draw
+    nothing."""
+    if proba == 1.0:
+        return torch.ones(tuple(shape), dtype=torch.bool, device=device)
+    if proba == 0.0:
+        return torch.zeros(tuple(shape), dtype=torch.bool, device=device)
+    return torch.rand(tuple(shape), generator=generator, device=device) < proba
 
 
 class LearnedPositionalEmbedding(nn.Module):

@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernel library.
 
-The `jen1_tpu_torch/csrc/*.cu` sources are compiled by one `nvcc` call for
-sm_90a straight into one shared library with a plain C interface, which is
-loaded with ctypes. The library goes
+Each `jen1_tpu_torch/csrc/*.cu` source is compiled for sm_90a by its own
+`nvcc` process, all started together, and one more `nvcc` links the
+objects into one shared library with a plain C interface, which is loaded
+with ctypes. The library goes
 into `build/jen1_tpu_torch/<hash of sources and flags>/` at the repository
 root (listed in .gitignore), so a changed source rebuilds and an unchanged
 one loads the cached build. Nothing is built at import: the first call to
@@ -27,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "jen1_tpu_torch"
 LIB_NAME = "libjen1_tpu_torch_kernels.so"
 COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -79,15 +80,26 @@ def build() -> BuildInfo:
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / LIB_NAME
-        proc = subprocess.run(
-            [nvcc, *COMPILE_FLAGS, *map(str, srcs), "-o", str(tmp_lib)],
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             *map(str, objs), "-o", str(tmp_lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, lib)
-    _BUILD = BuildInfo(lib, time.perf_counter() - t0, proc.stdout)
+    _BUILD = BuildInfo(lib, time.perf_counter() - t0, "".join(logs) + link.stdout)
     return _BUILD
 
 
@@ -96,9 +108,14 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build().path))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn = lib.jen1_flash_attention_fwd
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        fn.restype = i32
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # (name, pointer arguments): each then takes bh, n, d, dtype,
+        # causal (ints), sm_scale (float) and the stream
+        for name, n_ptrs in (("jen1_flash_attention_fwd", 5),
+                             ("jen1_flash_attention_bwd_dq", 7),
+                             ("jen1_flash_attention_bwd_dkv", 8)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * n_ptrs + [i32] * 5 + [f32, ptr]
+            fn.restype = i32
         _LIB = lib
     return _LIB

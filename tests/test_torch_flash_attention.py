@@ -7,9 +7,14 @@ CPU tensors. O and the logsumexp are compared at rtol/atol 2e-3 (the fp32
 bar of tests/test_flash_attention.py). The CUDA kernel itself is held
 against the plain version on the card by tests/test_torch_cuda.py and by
 chip_smoke.py.
+
+The gradients of the port's autograd Function (plain backward) are held
+against jax.grad through the Pallas backward kernels (interpret mode) at
+rtol/atol 5e-3, the bar of tests/test_flash_attention.py:64-98.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -70,3 +75,63 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="not CUDA"):
         fa.flash_attention_fwd(q, k, v)
 
+
+# Gradient bar of the Pallas backward against XLA (tests/test_flash_attention.py:64-98).
+GRAD_BAR = dict(rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "n,d", [(150, 16), (150, 32), (563, 16), (563, 32), (1024, 16), (1024, 32), (150, 24)]
+)
+def test_gradients_match_pallas_backward(n, d, causal):
+    """dq, dk, dv of the port's autograd Function (plain backward on the CPU)
+    against jax.grad of the JAX flash_attention, whose custom_vjp runs the
+    Pallas backward kernels in interpret mode. N = 150 and 563 leave ragged
+    tiles; N = 1024 has several q and k blocks; D = 24 is a head dim the
+    CUDA wrappers zero-pad."""
+    q, k, v = qkv(n, d, seed=100 + n + d)
+    g = randn(rng(n * d), 1, 2, n, d)
+    ref = jax.jit(jax.grad(
+        lambda q, k, v: jnp.sum(jax_flash(q, k, v, causal) * g), argnums=(0, 1, 2)
+    ))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (fa.flash_attention(tq, tk, tv, causal=causal) * torch.from_numpy(g)).sum().backward()
+    for port, r in zip((tq.grad, tk.grad, tv.grad), ref):
+        assert_close(port, r, **GRAD_BAR)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_reference_equals_autograd_of_plain_forward(causal):
+    """flash_attention_bwd_reference (P = exp(S - lse) from the forward's
+    lse) is the gradient of flash_attention_reference's O."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkv(150, 16, seed=9))
+    do = torch.from_numpy(randn(rng(10), 1, 2, 150, 16))
+    o, lse = fa.flash_attention_reference(q, k, v, causal)
+    auto = torch.autograd.grad(o, (q, k, v), do)
+    ours = fa.flash_attention_bwd_reference(q, k, v, o.detach(), lse.detach(), do, causal)
+    for a, b in zip(ours, auto):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,dp", [(24, 32), (96, 128), (200, 256)])
+def test_zero_padding_is_exact(d, dp):
+    """What the CUDA wrappers do for head dims without a kernel: zero-pad q,
+    k, v and dO to the next supported D, pass the unpadded D^-1/2, slice
+    the outputs back. Checked on the plain versions."""
+    assert fa.kernel_head_dim(d) == dp
+    q, k, v, do = (torch.from_numpy(randn(rng(d + i), 1, 2, 150, d)) for i in range(4))
+    o, lse = fa.flash_attention_reference(q, k, v, True)
+    pad = [fa._pad_head_dim(t, dp) for t in (q, k, v, do)]
+    op, lsep = fa.flash_attention_reference(*pad[:3], True, sm_scale=d**-0.5)
+    torch.testing.assert_close(op[..., :d], o, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lsep, lse, rtol=1e-5, atol=1e-6)
+    grads = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True)
+    grads_p = fa.flash_attention_bwd_reference(*pad[:3], op, lsep, pad[3], True, sm_scale=d**-0.5)
+    for a, b in zip(grads_p, grads):
+        torch.testing.assert_close(fa._unpad(a, d), b, rtol=1e-5, atol=1e-5)
+
+
+def test_head_dim_above_256_has_no_kernel():
+    with pytest.raises(ValueError, match="head dim 257"):
+        fa.kernel_head_dim(257)

@@ -22,8 +22,20 @@ def imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+# the training slice's modules, which the static check must cover
+TRAINING_MODULES = [
+    "jen1_tpu_torch/train/trainer.py", "jen1_tpu_torch/train/train.py",
+    "jen1_tpu_torch/train/tasks.py", "jen1_tpu_torch/train/optim.py",
+    "jen1_tpu_torch/train/fused_optim.py", "jen1_tpu_torch/diffusion/gdm.py",
+    "jen1_tpu_torch/diffusion/schedules.py", "jen1_tpu_torch/models/composer.py",
+    "jen1_tpu_torch/data/dataset.py", "jen1_tpu_torch/utils/logger.py",
+]
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 20
+    found = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert set(TRAINING_MODULES) <= found
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -39,3 +51,13 @@ def test_jen1_default_device_raises_without_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Jen1()
+
+
+def test_build_trainer_default_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from jen1_tpu_torch.config import tiny_test_config
+    from jen1_tpu_torch.train.train import build_trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trainer(tiny_test_config())
