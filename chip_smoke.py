@@ -13,18 +13,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    head dims included, with the stated bars; what a dropped
                    ragged tile would shift; K1 timed at the generation shape,
                    K2/K3 at the training shapes, beside their plain versions,
-                   their bounds and the SDPA yardsticks.
+                   their bounds and the SDPA yardsticks. K4 (int8 weight-only
+                   matmul) against its plain version at every int8 shape of
+                   the flagship preset and at ragged shapes, x in bf16 and
+                   fp32; what a dropped final K tile or a bf16 dequantize
+                   before the product would shift; K4 timed per flagship
+                   shape with its weights cold in L2, beside its plain
+                   version, its bound and a bf16 torch.matmul yardstick.
   4. small       - the generation slice (T5, VDM + UNetCFG1d with its flash
                    path, chunked decode) at tiny widths, on the card against
                    the CPU with the same weights and the same initial noise.
-  5. small-train - one train step of a tiny trainer on the card against the
+  5. small-gdm   - the same tiny slice with use_gdm=True (DDIM and
+                   DPM-Solver++, 4 steps), on the card against the CPU, with
+                   fp32 weights and with every UNet conv quantized
+                   (thresholds 0), the same x_T and step noise on both.
+  6. small-train - one train step of a tiny trainer on the card against the
                    CPU (same weights, batch and draws), both causal variants:
                    per-task losses and every gradient leaf.
-  6. main        - Jen1(longform_config()).generate(): one warm-up request,
+  7. main        - Jen1(longform_config()).generate(): one warm-up request,
                    then two timed requests (100 steps, 30 s, B=1); checks
                    shapes, finiteness and K1 launches; then one more request
                    under torch.profiler for the device's busy share.
-  7. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
+  8. flagship    - Jen1(Config()) with the UNet's convs quantized at the
+                   default thresholds: the census, one UNet forward at
+                   (2, 4500, 128) with K4, with the plain version and with
+                   fp32 weights; one warm-up and two timed 100-step 30 s
+                   DDIM requests (K4 launches, shapes, finiteness), one
+                   request with fp32 weights, one 10-step request under
+                   torch.profiler.
+  9. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
                    steps, 5 timed steps, launches of K1/K2/K3 per step, and
                    one more step under torch.profiler.
@@ -93,6 +110,29 @@ TRAIN_PROMPTS = ["a calm piano melody over soft strings", "driving techno with a
 # K1 / K2 / K3 launches per train step: two causal groups x two level-1
 # transformers per UNet forward
 TRAIN_LAUNCHES = 4
+
+
+# K4 at the flagship preset (Config(), 30 s, CFG-doubled B = 1): the
+# (M, K, N) of the int8 products of one UNet forward at (2, 4500, 128) and
+# how many of each (52 in all). M is 2 x the frames of UNet levels 7-9.
+INT8_SHAPES = {
+    (10, 3072, 1024): 10, (10, 1024, 1024): 4, (10, 6144, 1024): 4, (10, 2048, 1024): 4,
+    (6, 3072, 1024): 8, (6, 1024, 1024): 6, (6, 6144, 1024): 2, (6, 2048, 1024): 2,
+    (18, 1024, 512): 4, (36, 1024, 512): 4, (72, 1024, 512): 4,
+}
+INT8_RAGGED = ((130, 96, 72), (1, 1000, 1000), (7, 3072, 1000))
+# K4 against its plain version, elementwise: |diff| <= INT8_REL_BAR *
+# max|ref|. Both sum the same exact products (bf16 x int8 fits an fp32) in
+# other orders.
+INT8_REL_BAR = 1e-4
+# bytes of distinct weight copies a K4 timing cycles through, so that every
+# call finds its weights cold in the 50 MB L2, as a UNet forward does (its
+# 52 int8 kernels hold 124 MB)
+L2_FLUSH_BYTES = 128 << 20
+FLAGSHIP_STEPS = 100
+FLAGSHIP_SECONDS = 30
+FLAGSHIP_READ_CONVS = 52  # stride-1 convs that read their int8 kernel
+FLAGSHIP_QUANTIZED = 56  # conv kernels the JAX rule selects
 
 
 _START = time.perf_counter()
@@ -275,7 +315,137 @@ def phase_kernels(torch) -> list:
         "library_ms": library_ms,
     }]
     rows += time_backward(torch, F, fa, gen)
+    rows.append(int8_kernel_row(torch))
     return rows
+
+
+def int8_case(torch, im, gen, m, k, n, dtype):
+    """x (M, K) in `dtype` and the int8 quantization of a (K, N) weight."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w8, scale = im.quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * 0.05)
+    return x, w8, scale
+
+
+def check_int8(torch, im, gen, m, k, n, dtype) -> float:
+    """K4 against matmul_int8w_plain at (m, k, n); returns max|diff|."""
+    x, w8, scale = int8_case(torch, im, gen, m, k, n, dtype)
+    out = im.matmul_int8w_cuda(x, w8, scale)
+    torch.cuda.synchronize()
+    ref = im.matmul_int8w_plain(x, w8, scale)
+    err = (out - ref).abs().max().item()
+    bar = INT8_REL_BAR * ref.abs().max().item()
+    ok = out.shape == ref.shape and err <= bar
+    log(f"[kernels] matmul_int8w m={m} k={k} n={n} x {str(dtype)[6:]} splits "
+        f"{im.split_k(m, k, n)[0]}: max|diff|={err:.3e} (bar {bar:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: K4 disagrees with its plain version")
+    return err
+
+
+def int8_shifts(torch, im, gen, m, k, n) -> None:
+    """What the K4 bar would see if the kernel dropped the last 64 rows of
+    K, or dequantized the weights to bf16 before the product."""
+    x, w8, scale = int8_case(torch, im, gen, m, k, n, torch.bfloat16)
+    ref = im.matmul_int8w_plain(x, w8, scale)
+    bar = INT8_REL_BAR * ref.abs().max().item()
+    dropped = im.matmul_int8w_plain(x[:, : k - 64].contiguous(), w8[: k - 64], scale)
+    early = x.float() @ (w8.float() * scale).to(torch.bfloat16).float()
+    log(f"[kernels] K4 at m={m} k={k} n={n} bf16: a dropped final K tile would shift "
+        f"{(dropped - ref).abs().max().item():.3e} = "
+        f"{(dropped - ref).abs().max().item() / bar:.1f}x the bar; a bf16 dequantize "
+        f"before the product {(early - ref).abs().max().item():.3e} = "
+        f"{(early - ref).abs().max().item() / bar:.1f}x the bar")
+
+
+def time_cycled(torch, fn, args, iters: int) -> float:
+    """Mean device ms of `fn(*args[i % len(args)])` by CUDA events."""
+    for a in args[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*args[i % len(args)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, args, iters: int) -> float:
+    """Mean device time per call of `fn(*args[i % len(args)])`: the CUDA
+    kernel time it launched, summed by torch.profiler, over `iters` calls.
+    At K4's shapes a call's kernels take a few us, less than the host takes
+    to enqueue it, so CUDA events around back-to-back calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in args[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*args[i % len(args)])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) * 1e-3 / iters
+
+
+def int8_kernel_row(torch) -> dict:
+    """K4 checked at every flagship and ragged shape (x bf16 and fp32) and
+    timed per flagship shape by device time (the host's enqueue rate, by CUDA
+    events, beside it); the record row holds the per-call mean over the 52
+    launches of one flagship UNet forward."""
+    from jen1_tpu_torch.ops import int8_matmul as im
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for m, k, n in list(INT8_SHAPES) + list(INT8_RAGGED):
+        for dtype in (torch.bfloat16, torch.float32):
+            err = check_int8(torch, im, gen, m, k, n, dtype)
+            if (m, k, n) in INT8_SHAPES and dtype == torch.bfloat16:
+                worst = max(worst, err)
+    int8_shifts(torch, im, gen, 10, 3072, 1024)
+    int8_shifts(torch, im, gen, 6, 1024, 1024)
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    sum_ops = sum_bytes = 0.0
+    for (m, k, n), count in INT8_SHAPES.items():
+        x, w8, scale = int8_case(torch, im, gen, m, k, n, torch.bfloat16)
+        copies = -(-L2_FLUSH_BYTES // (k * n))
+        weights = [(x, w8.clone(), scale) for _ in range(copies)]
+        ms = device_ms(torch, im.matmul_int8w_cuda, weights, 400)
+        enqueue_ms = time_cycled(torch, im.matmul_int8w_cuda, weights, 400)
+        plain = device_ms(torch, im.matmul_int8w_plain, weights, 100)
+        del weights
+        deq = (w8.float() * scale).to(torch.bfloat16)
+        dense = [(x, deq.clone()) for _ in range(-(-copies // 2))]
+        library = device_ms(torch, torch.matmul, dense, 400)
+        library_enqueue = time_cycled(torch, torch.matmul, dense, 400)
+        del dense
+        if min(ms, plain, library) <= 0.0:
+            raise SystemExit("chip_smoke: the profiler saw no device time for K4's timing")
+        nbytes = k * n + 2 * m * k + 4 * m * n + 4 * n
+        flops = 2 * m * k * n
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+        bound = max(t_ops, t_bytes) * 1e3
+        log(f"[kernels] K4 m={m} k={k} n={n} bf16 x ({count} / forward), device ms per call: "
+            f"kernel {ms:.5f}, plain {plain:.5f}, torch.matmul bf16 {library:.5f}, bound "
+            f"{bound:.6f} ({'operations' if t_ops >= t_bytes else 'bytes'}; "
+            f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); back-to-back calls by CUDA "
+            f"events {enqueue_ms:.5f} (K4) and {library_enqueue:.5f} (torch.matmul) ms; weights "
+            f"cold in L2 ({copies} copies)")
+        for key, value in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                           ("library_ms", library)):
+            total[key] += count * value
+        sum_ops, sum_bytes = sum_ops + count * t_ops, sum_bytes + count * t_bytes
+    launches = sum(INT8_SHAPES.values())
+    row = {key: value / launches for key, value in total.items()}
+    log(f"[kernels] K4 per call over one flagship forward's {launches} launches: "
+        + " ".join(f"{k}={v:.6f}" for k, v in row.items()))
+    return {"name": "matmul_int8w", "route": "cuda",
+            "source": "jen1_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "jen1_tpu/ops/int8_matmul.py:48", "max_abs_err": worst,
+            "bound_by": "operations" if sum_ops >= sum_bytes else "bytes", **row}
 
 
 def time_backward(torch, F, fa, gen) -> list:
@@ -332,22 +502,16 @@ def time_backward(torch, F, fa, gen) -> list:
     return [rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"]]
 
 
-def phase_small(torch) -> None:
-    """The whole slice at tiny widths, on the card against the CPU: the
-    same T5, UNet and codec weights and the same x_T, fp32, 13 s at 1600 Hz
-    (520 latent frames, so the level-1 transformer attends over 260 frames
-    through the flash path and the decode takes 4 chunks). Bar: rtol 2e-2 /
-    atol 2e-3, the sampler-trajectory bar of the CPU parity tests."""
+def tiny_pair(torch):
+    """Two tiny Jen1s, on the CPU and on the card, with the same T5, UNet
+    and codec weights: tiny_test_config widths, fp32, one attention head
+    and flash_min_seq_len 128, a 1600 Hz codec with a 40-sample hop."""
     import dataclasses
-
-    import numpy as np
 
     from jen1_tpu_torch.api.generation import Jen1
     from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
     from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
     from jen1_tpu_torch.config import tiny_test_config
-    from jen1_tpu_torch.diffusion import vdm
-    from jen1_tpu_torch.ops import flash_attention as fa
 
     cfg = tiny_test_config()
     # one head, so the level-1 transformer (16 channels) has head dim 16
@@ -368,6 +532,21 @@ def phase_small(torch) -> None:
     card.codec.load_state_dict(cpu.codec.state_dict())
     card.conditioner.conditioners["prompt"].load_state_dict(
         cpu.conditioner.conditioners["prompt"].state_dict())
+    return cpu, card
+
+
+def phase_small(torch) -> None:
+    """The whole slice at tiny widths, on the card against the CPU: the
+    same T5, UNet and codec weights and the same x_T, fp32, 13 s at 1600 Hz
+    (520 latent frames, so the level-1 transformer attends over 260 frames
+    through the flash path and the decode takes 4 chunks). Bar: rtol 2e-2 /
+    atol 2e-3, the sampler-trajectory bar of the CPU parity tests."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import vdm
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    cpu, card = tiny_pair(torch)
     # the CPU and CUDA generators draw different numbers: give both x_T
     # from one CPU stream
     draw = vdm.initial_noise
@@ -385,6 +564,70 @@ def phase_small(torch) -> None:
         f"(rtol 2e-2, atol 2e-3) flash launches={launched}")
     if not close or launched == 0:
         raise SystemExit("chip_smoke: the tiny generate() on the card disagrees with the CPU")
+
+
+def phase_small_gdm(torch) -> None:
+    """The tiny slice with use_gdm=True on the card against the CPU: DDIM
+    (4 of 8 timesteps) and DPM-Solver++ (4 calls), x_T and each step's noise
+    drawn from one CPU stream for both devices. With fp32 weights the bar is
+    rtol 2e-2 / atol 2e-3, as in phase small. With every UNet conv quantized
+    (thresholds 0, the same tree attached on both devices) each conv rounds
+    its input to bf16, so the request is as sensitive to a 1e-6 relative
+    change upstream as to a bf16 step (tests/test_torch_generation.py); the
+    bar is then three times the CPU's own spread under a 1e-6 relative
+    change of x_T, in mean and in max of |diff|. K4 runs once per quantized
+    stride-1 conv and step."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import gdm
+    from jen1_tpu_torch.ops import int8_matmul as im
+
+    cpu, card = tiny_pair(torch)
+    q = im.quantize_conv_params(cpu.model, min_weight_bytes=0, min_weight_bytes_k1=0)
+    steps, kw = 4, dict(seed=5, steps=4, seconds=13, use_gdm=True)
+    shape = (1, 520, 8)
+    stream = torch.Generator().manual_seed(7)
+    x_t = torch.randn(shape, generator=stream)
+    noises = [torch.randn(shape, generator=stream) for _ in range(steps)]
+    draws = (gdm.initial_noise, gdm.step_noise)
+    gdm.step_noise = lambda x, generator, index, uniform=False: noises[index].to(x.device)
+
+    def run(jen1, mode, start=x_t):
+        gdm.initial_noise = lambda shape, generator, device: start.to(device)
+        return jen1.generate("a beautiful song", sampler_mode=mode, **kw)
+
+    try:
+        for quantized in (False, True):
+            if quantized:
+                attached = im.attach_qweights(cpu.model, q)
+                if im.attach_qweights(card.model, q) != attached or attached == 0:
+                    raise SystemExit("chip_smoke: the quantized tree attached unevenly")
+            for mode in ("scan", "dpm++"):
+                ref = run(cpu, mode)
+                im.LAUNCHES = 0
+                out = run(card, mode)
+                launched = im.LAUNCHES
+                diff = np.abs(out - ref)
+                want = attached * steps if quantized else 0
+                if quantized:
+                    spread = [np.abs(run(cpu, mode, x_t * (1 + sign * 1e-6 * noises[0])) - ref)
+                              for sign in (1, -1)]
+                    bar_mean = 3 * max(d.mean() for d in spread)
+                    bar_max = 3 * max(d.max() for d in spread)
+                    close = diff.mean() <= bar_mean and diff.max() <= bar_max
+                    bar = f"mean <= {bar_mean:.3e}, max <= {bar_max:.3e}"
+                else:
+                    close = np.allclose(out, ref, rtol=2e-2, atol=2e-3)
+                    bar = "rtol 2e-2, atol 2e-3"
+                ok = close and out.shape == ref.shape and launched == want
+                log(f"[small-gdm] {'int8' if quantized else 'fp32'} weights, sampler_mode="
+                    f"{mode}: card vs CPU max|diff|={diff.max():.3e} mean={diff.mean():.3e} "
+                    f"({bar}); K4 launches {launched} (want {want}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("chip_smoke: the tiny GDM generate() on the card "
+                                     "disagrees with the CPU")
+    finally:
+        gdm.initial_noise, gdm.step_noise = draws
 
 
 def launch_counts():
@@ -526,10 +769,162 @@ def phase_main(torch) -> int:
     return total
 
 
-def profile_window(torch, tag: str, what: str, fn) -> None:
+def flagship_forwards(torch, im, jen1, q) -> None:
+    """One UNet forward at (2, 4500, 128) (the flagship's CFG-doubled
+    batch, no guidance mix) with K4, with K4's plain version on the card,
+    and with fp32 weights; logs the K4 shapes of the forward (which must be
+    INT8_SHAPES), K4 against the plain version, and the int8 drift from the
+    fp32 weights. The forward rounds every product's fp32 result to its bf16
+    activations, so K4's other summation order flips single bf16 steps that
+    the layers after carry on. The bar is the forward's own spread: K4
+    against the plain version may differ, in max and in mean of |diff|, by
+    at most three times what the plain version moves under a 1e-6 relative
+    change of its input. The plain-forward bar (rtol 2e-3, atol 2e-4 of
+    max|ref|) is logged beside it as a share of elements."""
+    import collections
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    mc = jen1.config.model_config
+    x = torch.randn((2, 4500, mc.in_channels), generator=gen, device="cuda")
+    x_moved = x * (1 + 1e-6 * torch.randn(x.shape, generator=gen, device="cuda"))
+    t = torch.full((2,), 500, dtype=torch.long, device="cuda")
+    emb = torch.randn((2, mc.context_embedding_max_length, mc.context_embedding_features),
+                      generator=gen, device="cuda")
+    mask = torch.ones((2, mc.context_embedding_max_length), dtype=torch.bool, device="cuda")
+    chans = torch.randn((2, 4500, mc.context_channels[0]), generator=gen, device="cuda")
+
+    def forward(inp=x):
+        with torch.no_grad():
+            out = jen1._model_fn(inp, t, embedding=emb, embedding_mask=mask,
+                                 channels_list=[chans])
+        torch.cuda.synchronize()
+        return out
+
+    kernel = im.matmul_int8w_cuda
+    shapes = collections.Counter()
+
+    def recording(a, w8, scale):
+        shapes[(a.shape[0], a.shape[1], w8.shape[1])] += 1
+        return kernel(a, w8, scale)
+
+    im.matmul_int8w_cuda = recording
+    try:
+        out = forward()
+        im.matmul_int8w_cuda = lambda a, w8, scale: im.matmul_int8w_plain(a, w8, scale)
+        ref = forward()
+        ref_moved = forward(x_moved)
+    finally:
+        im.matmul_int8w_cuda = kernel
+    im.clear_qweights(jen1.model)
+    fp = forward()
+    im.attach_qweights(jen1.model, q)
+    log("[flagship] K4 shapes of one forward (M, K, N): launches "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items())))
+    if dict(shapes) != INT8_SHAPES:
+        raise SystemExit("chip_smoke: the flagship forward's K4 shapes differ from INT8_SHAPES")
+    scale = ref.abs().max().item()
+    diff, spread = (out - ref).abs(), (ref_moved - ref).abs()
+    violations = (diff > 2e-4 * scale + 2e-3 * ref.abs()).float().mean().item()
+    drift = (out - fp).abs().max().item() / fp.abs().max().item()
+    ok = (bool(torch.isfinite(out).all()) and diff.max() <= 3 * spread.max()
+          and diff.mean() <= 3 * spread.mean())
+    log(f"[flagship] UNet forward (2, 4500, 128), max|ref| {scale:.4e}: K4 vs plain "
+        f"max|diff| {diff.max().item():.4e}, mean {diff.mean().item():.4e}; plain vs plain "
+        f"at a 1e-6 relative change of x: max {spread.max().item():.4e}, mean "
+        f"{spread.mean().item():.4e}; share of elements beyond rtol 2e-3 / atol "
+        f"2e-4*max|ref| {violations:.3e}; int8 vs fp32 weights max|diff|/max|ref| "
+        f"{drift:.3e} (no bar) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the flagship forward with K4 disagrees with its "
+                         "plain version")
+
+
+def phase_flagship(torch) -> int:
+    """The int8 flagship slice; returns the K4 launches of the two timed
+    requests."""
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.config import Config
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops import int8_matmul as im
+
+    t0 = time.perf_counter()
+    jen1 = Jen1(config=Config(), device="cuda")
+    q = im.quantize_conv_params(jen1.model)
+    read = im.attach_qweights(jen1.model, q)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in jen1.model.parameters())
+    int8_bytes = sum(w8.numel() for w8, _ in q.values())
+    read_bytes = sum(w8.numel() for p, (w8, _) in q.items()
+                     if im.reads_qweights(jen1.model.get_submodule(p)))
+    log(f"[flagship] Jen1(Config()) built and quantized in {time.perf_counter() - t0:.2f} s; "
+        f"UNet params {n_params}; {len(q)} conv kernels quantized ({int8_bytes} int8 bytes), "
+        f"{read} read by stride-1 convs ({read_bytes} bytes per forward)")
+    if (len(q), read) != (FLAGSHIP_QUANTIZED, FLAGSHIP_READ_CONVS):
+        raise SystemExit(f"chip_smoke: census {len(q)} / {read}, want "
+                         f"{FLAGSHIP_QUANTIZED} / {FLAGSHIP_READ_CONVS}")
+    flagship_forwards(torch, im, jen1, q)
+
+    kw = dict(steps=FLAGSHIP_STEPS, seconds=FLAGSHIP_SECONDS, use_gdm=True)
+    expected = read * FLAGSHIP_STEPS
+    samples = FLAGSHIP_SECONDS * jen1.sample_rate
+    t0 = time.perf_counter()
+    out = jen1.generate("warm-up", seed=1, **kw)
+    log(f"[flagship] warm-up request {time.perf_counter() - t0:.3f} s, shape {out.shape}")
+
+    torch.cuda.reset_peak_memory_stats()
+    im.LAUNCHES = fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    launches, outs = [], []
+    for prompt, seed in SLICE_PROMPTS:
+        before = im.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = jen1.generate(prompt, seed=seed, batch_size=1, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(im.LAUNCHES - before)
+        outs.append(out)
+        phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
+        log(f"[flagship] int8 request seed={seed}: wall {wall:.4f} s; phases (s): {phases}; "
+            f"K4 launches {launches[-1]}; shape {out.shape}; "
+            f"finite {bool(np.isfinite(out).all())}; "
+            f"rms {float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
+    total, flash = im.LAUNCHES, (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    for out in outs:
+        if out.shape != (1, 2, samples) or not np.isfinite(out).all():
+            raise SystemExit(f"chip_smoke: bad output shape {out.shape} or non-finite values")
+    if np.array_equal(outs[0], outs[1]):
+        raise SystemExit("chip_smoke: two prompts and seeds gave identical audio")
+    if launches != [expected] * len(SLICE_PROMPTS):
+        raise SystemExit(f"chip_smoke: K4 launches per request {launches}, want {expected}")
+    if flash != (0, 0, 0):
+        raise SystemExit(f"chip_smoke: the flagship launched flash kernels {flash}")
+
+    prompt, seed = SLICE_PROMPTS[0]
+    im.clear_qweights(jen1.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fp = jen1.generate(prompt, seed=seed, batch_size=1, **kw)
+    torch.cuda.synchronize()
+    log(f"[flagship] fp32-weight request seed={seed}: wall {time.perf_counter() - t0:.4f} s; "
+        f"phases (s): " + " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
+        + f"; rms of int8 - fp32 audio {float(np.sqrt(((outs[0] - fp) ** 2).mean())):.4e}")
+    im.attach_qweights(jen1.model, q)
+    by_name = profile_window(torch, "flagship-profile", f"{PROFILE_STEPS}-step int8 request",
+                             lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                                                   seconds=FLAGSHIP_SECONDS, use_gdm=True))
+    k4 = [(n, t) for name, (n, t) in by_name.items() if "int8w_" in name]
+    log(f"[flagship-profile] K4 device time {sum(t for _, t in k4):.4f} s in "
+        f"{sum(n for n, _ in k4)} kernel launches (both passes)")
+    return total
+
+
+def profile_window(torch, tag: str, what: str, fn) -> dict:
     """Run `fn` once under torch.profiler: the device's busy share of its
     wall (sum of kernel times over the wall) and the kernels that take the
-    most device time."""
+    most device time. Returns {kernel name: (launches, device s)}."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -549,8 +944,13 @@ def profile_window(torch, tag: str, what: str, fn) -> None:
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() * 1e-6)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     # the top twelve, and the port's own kernels wherever they rank
-    for name, (n, t) in ranked[:12] + [kv for kv in ranked[12:] if "flash_" in kv[0]]:
+    for name, (n, t) in ranked[:12] + [kv for kv in ranked[12:] if is_port_kernel(kv[0])]:
         log(f"[{tag}]   {t:.4f} s in {n} launches: {name[:110]}")
+    return by_name
+
+
+def is_port_kernel(name: str) -> bool:
+    return "flash_" in name or "int8w_" in name
 
 
 def phase_train(torch) -> tuple:
@@ -645,12 +1045,16 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch)
     phase_small(torch)
+    phase_small_gdm(torch)
     phase_small_train(torch)
     k1_generation = phase_main(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    k4 = phase_flagship(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     k1_train, k2, k3 = phase_train(torch)
-    for row, launches in zip(rows, (k1_generation + k1_train, k2, k3)):
+    for row, launches in zip(rows, (k1_generation + k1_train, k2, k3, k4)):
         row["launches"] = launches
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

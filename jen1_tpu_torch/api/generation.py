@@ -1,14 +1,19 @@
 """Jen1 text-to-music inference API (port of jen1_tpu/api/generation.py).
 
 `Jen1(...).generate(prompt, ...)` returns the waveform (B, channels,
-samples) as a numpy array, like the JAX package. This slice runs
-`task="text_guided"` with the VDM sampler and the chunked decode; other
-tasks, GDM, checkpoint loading, `generate_long*`, `generate_tracks` and
-`save_audio` are not ported yet and raise NotImplementedError.
+samples) as a numpy array, like the JAX package. The port runs
+`task="text_guided"` with the VDM sampler (the default) or, with
+`use_gdm=True`, the GDM samplers (DDIM, DDPM, `sampler_mode="dpm++"`), and
+the chunked decode; other tasks, `encoder_reuse > 1`, checkpoint loading,
+`generate_long*`, `generate_tracks` and `save_audio` are not ported yet and
+raise NotImplementedError.
 
 The model runs on `device` ("cuda" by default; "cpu" only when asked).
 Weights are random from `config.seed`, as in the JAX package without a
-checkpoint; `ckpt/from_jax.py` loads JAX parameter trees into them.
+checkpoint; `ckpt/from_jax.py` loads JAX parameter trees into them. int8
+weight-only inference is a property of the UNet's modules:
+`attach_qweights(jen1.model, quantize_conv_params(jen1.model))`
+(`ops/int8_matmul.py`) makes its large stride-1 convs run K4.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from jen1_tpu_torch.conditioning.conditioners import (
     assemble_conditioning,
     create_multi_conditioner,
 )
+from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
 from jen1_tpu_torch.models.unet import unet_from_model_config
 from jen1_tpu_torch.ops.initializers import init_module
@@ -107,10 +113,21 @@ class Jen1:
         self.diffusion = create_variational_diffusion(
             self.config.diffusion_config.variational_diffusion
         )
+        self._gdm_cache: Dict[int, object] = {}
         # Phase walls of the last generate() call, in seconds. On the card
         # each phase ends with torch.cuda.synchronize(), so they are device
         # walls: prep / conditioner / assemble / sampler / decode / fetch.
         self.last_timings: Dict[str, float] = {}
+
+    def _get_gdm(self, steps: int):
+        """The GDM with `steps` sampling steps, built once per count
+        (jen1_tpu/api/generation.py:295-307)."""
+        if steps not in self._gdm_cache:
+            self._gdm_cache[steps] = create_gaussian_diffusion(
+                self.config.diffusion_config.gaussian_diffusion,
+                sampling_steps=steps, device=self.device,
+            )
+        return self._gdm_cache[steps]
 
     def _model_fn(self, x, t, **kw):
         """The UNet at the compute dtype, fp32 at the sampler boundary."""
@@ -134,13 +151,31 @@ class Jen1:
         decode: bool = True,
         decode_mode: str = "chunked",
         output_dtype: str = "float32",
+        sampler_mode: str = "scan",
+        encoder_reuse: int = 1,
     ) -> np.ndarray:
         """Waveform (B, channels, samples) float32, or int16 PCM with
-        output_dtype="int16" (converted on the device)."""
+        output_dtype="int16" (converted on the device).
+
+        use_gdm=True samples with the GDM: DDIM over `steps` of the config's
+        `steps` timesteps, or DDPM when `steps` equals them;
+        sampler_mode="dpm++" runs DPM-Solver++(2M) instead. "scan" and
+        "stepwise" are one loop here."""
         if output_dtype not in ("float32", "int16"):
             raise ValueError(f"output_dtype must be 'float32' or 'int16', got {output_dtype!r}")
-        if use_gdm:
-            raise NotImplementedError("use_gdm=True (GDM/DDIM) is not ported yet")
+        # the JAX package's checks (jen1_tpu/api/generation.py:582-595)
+        if sampler_mode not in ("scan", "stepwise", "dpm++"):
+            raise ValueError(
+                f"sampler_mode must be 'scan', 'stepwise' or 'dpm++', got {sampler_mode!r}")
+        if sampler_mode == "dpm++" and not use_gdm:
+            raise ValueError("sampler_mode='dpm++' requires use_gdm=True")
+        if encoder_reuse > 1 and not (use_gdm and sampler_mode in ("scan", "dpm++")):
+            raise ValueError("encoder_reuse>1 (Faster-Diffusion encoder propagation) "
+                             "requires use_gdm=True with sampler_mode 'scan' or 'dpm++'")
+        if encoder_reuse > 1:
+            raise NotImplementedError(
+                "encoder_reuse > 1 needs the UNet encoder cache, which is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
         if task != "text_guided" or init_audio is not None:
             raise NotImplementedError("only task='text_guided' without init_audio is ported")
         if not decode or decode_mode != "chunked":
@@ -193,10 +228,17 @@ class Jen1:
             deterministic=torch.backends.cudnn.deterministic,
             allow_tf32=False,
         ):
-            latents = self.diffusion.p_sample_loop(
-                self._model_fn, (batch_size, frames, cfg.dimension), conditioning,
-                generator, device=dev, step=steps, causal=False,
-            )
+            shape = (batch_size, frames, cfg.dimension)
+            if use_gdm:
+                latents = self._get_gdm(steps).sample(
+                    self._model_fn, shape, conditioning, generator, device=dev,
+                    causal=False, mode=sampler_mode,
+                )
+            else:
+                latents = self.diffusion.p_sample_loop(
+                    self._model_fn, shape, conditioning, generator, device=dev,
+                    step=steps, causal=False,
+                )
             mark("sampler")
             audio = self.codec.decode_latent_chunked(latents)
         if output_dtype == "int16":

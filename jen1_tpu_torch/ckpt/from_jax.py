@@ -13,6 +13,8 @@ module, and the leaf is transposed into torch layout:
   norm scale                     -> weight
 
 Covers the UNet (`UNetCFG1d`), the T5 conditioner and the codec decoder.
+`load_flax_qweights` loads a JAX `qweights` collection (int8 inference,
+jen1_tpu/ops/int8_matmul.py:142-186) into the UNet's stride-1 convs.
 Imports neither JAX nor `jen1_tpu`.
 """
 
@@ -26,6 +28,7 @@ from torch import nn
 
 from jen1_tpu_torch.codec.seanet import SConvTranspose1d, SLSTM
 from jen1_tpu_torch.ops.conv import Upsample1d
+from jen1_tpu_torch.ops.int8_matmul import attach_qweights
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -81,3 +84,30 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
     missing = {n for n, _ in module.named_parameters()} - written
     if missing:
         raise ValueError(f"parameters not in the JAX tree: {sorted(missing)[:8]}")
+
+
+def load_flax_qweights(module: nn.Module, tree: Mapping) -> int:
+    """Attach a JAX `qweights` tree (nested dicts whose leaves are
+    `kernel8` (k, Cin, Cout) int8 and `scale` (Cout,) fp32, at the module
+    paths of the parameter tree) to `module`'s stride-1 `OmniConv1d`s. A
+    level that holds only a "qweights" key is stepped through. Entries of
+    other modules (strided convs, `Upsample1d`) are ignored, as JAX ignores
+    them. Returns the number of convs that read theirs."""
+    if set(tree) == {"qweights"}:
+        tree = tree["qweights"]
+    entries = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        if "kernel8" in node:
+            kern = np.asarray(node["kernel8"])
+            k, cin, cout = kern.shape
+            entries[prefix[:-1]] = (
+                torch.from_numpy(np.array(kern, np.int8).reshape(k * cin, cout)),
+                torch.from_numpy(np.array(node["scale"], np.float32)),
+            )
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.")
+
+    walk(tree, "")
+    return attach_qweights(module, entries)

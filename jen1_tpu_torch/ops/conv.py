@@ -3,7 +3,9 @@ jen1_tpu/ops/conv.py).
 
 Weights are stored in torch layout, fp32, and cast to the activation dtype
 at use: Conv1d (out, in, K), ConvTranspose1d (in, out, K). The functions
-transpose to (B, C, L) for `F.conv1d` and back.
+transpose to (B, C, L) for `F.conv1d` and back. A stride-1 `OmniConv1d`
+given an int8 kernel (`ops/int8_matmul.py::attach_qweights`) runs
+`conv1d_int8w` instead.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jen1_tpu_torch.ops.initializers import torch_uniform_
+from jen1_tpu_torch.ops.int8_matmul import conv1d_int8w
 
 
 def _cast(w: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -68,7 +71,12 @@ def conv_transpose1d(
 
 
 class OmniConv1d(nn.Module):
-    """Conv1d with the omnidirectional causal/bidirectional padding rule."""
+    """Conv1d with the omnidirectional causal/bidirectional padding rule.
+
+    `kernel8` ((K*in, out) int8) and `scale` ((out,) fp32) are None until
+    `attach_qweights` sets them; a stride-1 conv then reads them instead of
+    `weight` (jen1_tpu/ops/conv.py:180-187). They are not part of the state
+    dict: the fp32 weight stays, as JAX keeps `params` beside `qweights`."""
 
     def __init__(
         self,
@@ -85,6 +93,8 @@ class OmniConv1d(nn.Module):
         self.dilation = dilation
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+        self.register_buffer("kernel8", None, persistent=False)
+        self.register_buffer("scale", None, persistent=False)
 
     def init_parameters(self, generator):
         torch_uniform_(self.weight, self.fan_in, generator)
@@ -92,6 +102,9 @@ class OmniConv1d(nn.Module):
             torch_uniform_(self.bias, self.fan_in, generator)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        if self.stride == 1 and self.kernel8 is not None:
+            return conv1d_int8w(x, self.kernel8, self.scale, self.bias,
+                                dilation=self.dilation, causal=causal)
         return conv1d(
             x, self.weight, self.bias,
             stride=self.stride, dilation=self.dilation, causal=causal,

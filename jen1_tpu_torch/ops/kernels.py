@@ -117,5 +117,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptrs + [i32] * 5 + [f32, ptr]
             fn.restype = i32
+        # K4: x, w8, scale, work, out; m, k, n, dtype, splits, chunk; stream
+        lib.jen1_int8w_matmul.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        lib.jen1_int8w_matmul.restype = i32
         _LIB = lib
     return _LIB

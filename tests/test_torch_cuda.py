@@ -14,12 +14,15 @@ kernels are held against their plain versions at the bars of chip_smoke.py:
   * K2 / K3: dq, dk, dv elementwise within 1e-4*max|ref| in fp32 (the
     kernels and cuBLAS sum the same fp32 products in other orders), plus
     1e-2*|ref| in bf16 (one bf16 rounding step of each side's fp32 result).
+  * K4: elementwise within 1e-4*max|ref|: the kernel and the plain version
+    sum the same exact products (bf16 x int8 fits an fp32) in other orders.
 """
 
 import pytest
 import torch
 
 from jen1_tpu_torch.ops import flash_attention as fa
+from jen1_tpu_torch.ops import int8_matmul as im
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +150,57 @@ def test_unsupported_head_dim_raises(cuda_device):
     q, k, v = randn(cuda_device, (1, 1, 128, 264), torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 264"):
         fa.flash_attention_fwd(q, k, v)
+
+
+def int8_inputs(device, m, k, n, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(dtype)
+    w8, scale = im.quantize_weight(torch.randn((k, n), generator=g) * 0.05)
+    return x.to(device), w8.to(device), scale.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(10, 3072, 1024), (130, 96, 72)])
+def test_int8_kernel_matches_plain_version(cuda_device, m, k, n, dtype):
+    """A flagship shape (a CFG-doubled deep-level project) and a ragged one."""
+    x, w8, scale = int8_inputs(cuda_device, m, k, n, dtype)
+    out = im.matmul_int8w_cuda(x, w8, scale)
+    torch.cuda.synchronize()
+    ref = im.matmul_int8w_plain(x, w8, scale)
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_int8_dispatcher_launches_kernel_on_cuda(cuda_device, monkeypatch):
+    """A CUDA tensor goes to K4, never to the plain version."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version was called on a CUDA tensor")
+
+    x, w8, scale = int8_inputs(cuda_device, 6, 1024, 1024, torch.bfloat16, seed=1)
+    monkeypatch.setattr(im, "matmul_int8w_plain", refuse)
+    before = im.LAUNCHES
+    out = im.matmul_int8w(x, w8, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (6, 1024) and im.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_quantized_conv_on_cuda_matches_cpu(cuda_device, causal):
+    """A quantized stride-1 OmniConv1d (k = 3, dilation 2) on the card
+    gives the CPU's output, through K4."""
+    from jen1_tpu_torch.ops.conv import OmniConv1d
+    from jen1_tpu_torch.ops.initializers import init_module
+
+    conv = OmniConv1d(96, 64, kernel_size=3, dilation=2)
+    init_module(conv, torch.Generator().manual_seed(2))
+    im.attach_qweights(conv, im.quantize_conv_params(conv, min_weight_bytes=0))
+    x = torch.randn((2, 37, 96), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        ref = conv(x, causal=causal)
+        conv.to(cuda_device)
+        before = im.LAUNCHES
+        out = conv(x.to(cuda_device), causal=causal)
+        torch.cuda.synchronize()
+    assert im.LAUNCHES == before + 1 and conv.kernel8.is_cuda
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

@@ -32,10 +32,18 @@ TRAINING_MODULES = [
 ]
 
 
+# the int8 generation slice's modules
+INT8_GDM_MODULES = [
+    "jen1_tpu_torch/ops/int8_matmul.py", "jen1_tpu_torch/diffusion/dpm_solver.py",
+    "jen1_tpu_torch/ops/kernels.py", "jen1_tpu_torch/ckpt/from_jax.py",
+]
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     found = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert set(TRAINING_MODULES) <= found
+    assert set(INT8_GDM_MODULES) <= found
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

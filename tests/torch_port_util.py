@@ -84,3 +84,31 @@ def vdm_initial_noise(seed: int, shape) -> np.ndarray:
     the first half drawn as N(0, 1) (generation.py:429,648; vdm.py:157-158)."""
     rng_init, _ = jax.random.split(jax.random.fold_in(jax.random.key(seed), 2))
     return np.array(jax.random.normal(rng_init, shape, jax.numpy.float32))
+
+
+def gdm_draws(key, shape, fold_values):
+    """The draws of the JAX `GaussianDiffusion.sample(..., rng=key)`: split
+    the key, x_T from the first half; the step that folds `v` into the
+    second half draws its noise from split(fold_in(rng_loop, v))[1]
+    (gdm.py:318-332, :454-473). DDIM folds the step index, DDPM the
+    timestep. Returns (x_T, [noise per fold value])."""
+    rng_init, rng_loop = jax.random.split(key)
+    x_t = np.array(jax.random.normal(rng_init, shape, jax.numpy.float32))
+    noises = [
+        np.array(jax.random.normal(jax.random.split(jax.random.fold_in(rng_loop, v))[1],
+                                   shape, jax.numpy.float32))
+        for v in fold_values
+    ]
+    return x_t, noises
+
+
+def inject_gdm_draws(monkeypatch, x_t, noises) -> None:
+    """Make jen1_tpu_torch's GDM samplers take x_T and step i's noise from
+    the given arrays instead of their generator."""
+    from jen1_tpu_torch.diffusion import gdm
+
+    monkeypatch.setattr(gdm, "initial_noise",
+                        lambda shape, generator, device: torch.from_numpy(x_t).to(device))
+    monkeypatch.setattr(gdm, "step_noise",
+                        lambda x, generator, index, uniform=False:
+                        torch.from_numpy(noises[index]).to(x.device))
