@@ -7,13 +7,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. device      - require CUDA; print the card's name, count and power limit.
   2. build       - build the kernel library from jen1_tpu_torch/csrc (one
                    nvcc per source, in parallel) and print its `-Xptxas -v`
-                   register and shared-memory use.
+                   register and shared-memory use, and the SASS instruction
+                   mix of the main loop of K1's and K3's tensor-core
+                   kernels at head dim 16.
   3. kernels     - K1 (flash forward), K2 (dq) and K3 (dk, dv) against their
                    plain PyTorch versions over N x D x dtype x causal, padded
-                   head dims included, with the stated bars; what a dropped
-                   ragged tile would shift; K1 timed at the generation shape,
-                   K2/K3 at the training shapes, beside their plain versions,
-                   their bounds and the SDPA yardsticks. K4 (int8 weight-only
+                   head dims included, with the stated bars, each launch on
+                   its route (bf16: K1/K3 tensor cores; fp32: scalar); what a
+                   dropped ragged tile, or K1 with a single bf16 P, would
+                   shift; K1 timed at the generation shape and N = 4500, K2/K3
+                   at the training shape, both causal values, in device time
+                   (torch.profiler; CUDA events beside it), beside their plain
+                   versions, their bounds (bytes / operations, and the ex2
+                   unit) and the SDPA yardsticks. K4 (int8 weight-only
                    matmul) against its plain version at every int8 shape of
                    the flagship preset and at ragged shapes, x in bf16 and
                    fp32; what a dropped final K tile or a bf16 dequantize
@@ -32,8 +38,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    per-task losses and every gradient leaf.
   7. main        - Jen1(longform_config()).generate(): one warm-up request,
                    then two timed requests (100 steps, 30 s, B=1); checks
-                   shapes, finiteness and K1 launches; then one more request
-                   under torch.profiler for the device's busy share.
+                   shapes, finiteness and K1 launches, every one on the
+                   tensor-core route; then one more request under
+                   torch.profiler for the device's busy share and K1's
+                   device time.
   8. flagship    - Jen1(Config()) with the UNet's convs quantized at the
                    default thresholds: the census, one UNet forward at
                    (2, 4500, 128) with K4, with the plain version and with
@@ -43,8 +51,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    torch.profiler.
   9. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
-                   steps, 5 timed steps, launches of K1/K2/K3 per step, and
-                   one more step under torch.profiler.
+                   steps, 5 timed steps, launches of K1/K2/K3 per step (K1
+                   and K3 all on the tensor-core route), and one more step
+                   under torch.profiler with K1+K3's device time.
 The line before the last is the `{"kernels": [...]}` record; the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -65,6 +74,12 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# The exp of every score runs on the special-function unit: 16 ex2 results
+# per clock per SM on compute capability 9.0 (CUDA programming guide,
+# arithmetic-instruction throughput table), 132 SMs on the H100 SXM. At head
+# dim 16 this bounds the flash kernels above the tensor-core rate.
+SM_COUNT = 132
+EX2_PER_CLOCK_PER_SM = 16
 
 # Bars of K1 against its plain version. O in fp32: the absolute bar of
 # tests/test_flash_attention.py. O in bf16: both sides round an fp32 result
@@ -158,18 +173,30 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nvidia_smi(query: str) -> str:
+    """The first card's `query` fields, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device(torch) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    log(f"[device] {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    smi = nvidia_smi("name,power.limit")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    log(f"[device] {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"max SM clock {clock_mhz:.0f} MHz")
     print(smi, flush=True)
-    return {"kind": name, "count": count, "smi": smi}
+    return {"kind": name, "count": count, "smi": smi, "sm_clock_hz": clock_mhz * 1e6}
+
+
+def exp_bound_ms(bh: int, pairs: int, clock_hz: float) -> float:
+    """Least time for the B*H*pairs exponentials on the ex2 units."""
+    return bh * pairs / (SM_COUNT * EX2_PER_CLOCK_PER_SM * clock_hz) * 1e3
 
 
 def phase_build() -> None:
@@ -181,6 +208,34 @@ def phase_build() -> None:
     for line in info.log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"[build] {line.strip()}")
+    sass_loops(info.path, ("flash_fwd_mma_kernelILi16E", "flash_bwd_dkv_mma_kernelILi16E"))
+
+
+def sass_loops(lib: Path, kernels) -> None:
+    """For each named kernel, the instructions of its largest loop (the
+    span of its longest backward branch, branches not taken on most tiles
+    included) by opcode, from `cuobjdump -sass`: at head dim 16 the flash
+    kernels' pace follows this count."""
+    import collections
+    import re
+
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.splitlines()[0]
+        if not any(k in name for k in kernels):
+            continue
+        code = re.findall(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?[A-Z][^;]*);", func)
+        where = {int(a, 16): i for i, (a, _) in enumerate(code)}
+        loops = [(where[int(t, 16)], i) for i, (_, ins) in enumerate(code)
+                 for t in re.findall(r"\bBRA (?:\S+, )?0x([0-9a-f]+)", ins)
+                 if int(t, 16) in where and where[int(t, 16)] < i]
+        start, end = max(loops, key=lambda se: se[1] - se[0])
+        ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+                                  for _, ins in code[start:end + 1] if "@!PT" not in ins)
+        short = next(k for k in kernels if k in name)
+        log(f"[build] SASS of {short}: {len(code)} instructions, main loop "
+            f"{sum(ops.values())}: " + " ".join(f"{k}={v}" for k, v in ops.most_common(16)))
 
 
 def grad_violation(out, ref, dtype_name: str):
@@ -207,13 +262,16 @@ def check_bwd(torch, fa, gen, bh, n, d, dt, dtype, causal) -> dict:
     """K2 and K3 against flash_attention_bwd_reference; returns errors."""
     q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, bh, n, d, dtype, causal)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    before = fa.LAUNCHES_DKV_MMA
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    mma = fa.LAUNCHES_DKV_MMA - before
     torch.cuda.synchronize()
     refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
     errs = {name: grad_violation(out, ref, dt)
             for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
-    ok = all(ratio <= 1.0 for _, ratio in errs.values())
-    log(f"[kernels] flash_attention_bwd bh={bh} n={n} d={d} {dt} causal={causal}: "
+    ok = all(ratio <= 1.0 for _, ratio in errs.values()) and mma == (dt == "bfloat16")
+    log(f"[kernels] flash_attention_bwd bh={bh} n={n} d={d} {dt} causal={causal} K3 route "
+        f"{'tensor-core' if mma else 'scalar'}: "
         + " ".join(f"max|{k}|={e:.3e} ({r:.3f} of bar)" for k, (e, r) in errs.items())
         + f" {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -243,7 +301,30 @@ def dropped_tile_shift(torch, fa, gen, n, d) -> None:
         + "; ".join(parts))
 
 
-def phase_kernels(torch) -> list:
+def k1_shifts(torch, fa, gen, n, d) -> None:
+    """What the bf16 bar on K1's O would see if K1 skipped the ragged key
+    tile (keys >= 64 * (n // 64)), or multiplied P V with one bf16 copy of
+    P instead of its hi + lo split, at B*H = 16, bf16, non-causal."""
+    q, k, v = [torch.randn((1, 16, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3)]
+    ref = fa.flash_attention_reference(q, k, v)[0].float()
+    bar = O_ATOL + O_RTOL * ref.abs()
+    s = q.float() @ k.float().transpose(-1, -2) * d ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    single = (p.to(torch.bfloat16).float() @ v.float()) / p.sum(-1, keepdim=True)
+    parts = [f"one bf16 P shifts O by {(single.to(torch.bfloat16).float() - ref).abs().max():.3e}"
+             f" = {((single.to(torch.bfloat16).float() - ref).abs() / bar).max():.2f}x the bar"]
+    start = 64 * (n // 64)
+    if start < n:
+        keep = torch.arange(n, device="cuda") < start
+        pk = p * keep
+        drop = ((pk @ v.float()) / pk.sum(-1, keepdim=True)).to(torch.bfloat16).float()
+        parts.append(f"a dropped ragged key tile (keys {start}-{n - 1}) "
+                     f"{(drop - ref).abs().max():.3e} = {((drop - ref).abs() / bar).max():.2f}x")
+    log(f"[kernels] K1 at n={n} d={d} bf16: " + "; ".join(parts))
+
+
+def phase_kernels(torch, clock_hz: float) -> list:
     import torch.nn.functional as F
 
     from jen1_tpu_torch.ops import flash_attention as fa
@@ -265,7 +346,9 @@ def phase_kernels(torch) -> list:
     k1_err = 0.0
     for bh, n, d, dt, causal in cases:
         q, k, v = qkv(bh, n, d, dtypes[dt])
+        before = fa.LAUNCHES_MMA
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        mma = fa.LAUNCHES_MMA - before
         torch.cuda.synchronize()
         ro, rlse = fa.flash_attention_reference(q, k, v, causal)
         diff = (o.float() - ro.float()).abs()
@@ -276,10 +359,10 @@ def phase_kernels(torch) -> list:
         else:
             ok_o = bool((diff <= O_ATOL + O_RTOL * ro.float().abs()).all())
             bar = f"{O_ATOL} + {O_RTOL}*|O|"
-        ok = ok_o and err_lse <= LSE_BAR
-        log(f"[kernels] flash_attention_fwd bh={bh} n={n} d={d} {dt} causal={causal}: "
-            f"max|dO|={err_o:.3e} (bar {bar}) max|dlse|={err_lse:.3e} (bar {LSE_BAR}) "
-            f"{'ok' if ok else 'FAIL'}")
+        ok = ok_o and err_lse <= LSE_BAR and mma == (dt == "bfloat16")
+        log(f"[kernels] flash_attention_fwd bh={bh} n={n} d={d} {dt} causal={causal} route "
+            f"{'tensor-core' if mma else 'scalar'}: max|dO|={err_o:.3e} (bar {bar}) "
+            f"max|dlse|={err_lse:.3e} (bar {LSE_BAR}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("chip_smoke: flash_attention_fwd disagrees with its plain version")
         if (bh, n, d, dt, causal) == (16, 1125, 16, "bfloat16", False):
@@ -287,36 +370,64 @@ def phase_kernels(torch) -> list:
     for bh, n, d, dt, causal in cases:
         check_bwd(torch, fa, gen, bh, n, d, dt, dtypes[dt], causal)
     dropped_tile_shift(torch, fa, gen, 1125, 16)
+    for n in (128, 563, 1125):
+        k1_shifts(torch, fa, gen, n, 16)
 
-    # K1 timing at the generation shape: B*H = 16 (CFG-doubled batch 2 x 8
-    # heads), N = 1125, D = 16, bf16, non-causal
-    bh, n, d = 16, 1125, 16
-    q, k, v = qkv(bh, n, d, torch.bfloat16)
-    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, False), 200)
-    plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, False), 50)
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 200)
-    flops = 4 * bh * n * n * d
-    nbytes = 4 * bh * n * d * q.element_size() + bh * n * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    log(f"[kernels] K1 generation shape timing: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-        f"sdpa {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
-        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-    rows = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "jen1_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "jen1_tpu/ops/flash_attention.py:45",
-        "max_abs_err": k1_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }]
-    rows += time_backward(torch, F, fa, gen)
+    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err)]
+    rows += time_backward(torch, F, fa, gen, clock_hz)
     rows.append(int8_kernel_row(torch))
     return rows
+
+
+def time_forward(torch, F, fa, qkv, clock_hz: float, err: float) -> dict:
+    """K1 at the generation shape (B*H = 16: CFG-doubled batch 2 x 8 heads,
+    N = 1125, D = 16, bf16) and at N = 4500 (a 2-minute window), both
+    causal values, by device time beside the CUDA-event time of back-to-back
+    calls, its plain version and SDPA's forward. The record row is the
+    generation shape's, non-causal."""
+    def sdpa(q, k, v, causal):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    row = None
+    for n in (1125, 4500):
+        bh, d = 16, 16
+        q, k, v = qkv(bh, n, d, torch.bfloat16)
+        for causal in (False, True):
+            args = [(q, k, v, causal)]
+            ms = device_ms(torch, fa.flash_attention_fwd, args, 200)
+            event_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal), 200)
+            plain_ms = device_ms(torch, fa.flash_attention_reference, args, 20)
+            library_ms = device_ms(torch, sdpa, args, 200)
+            library_event_ms = time_ms(torch, lambda: sdpa(q, k, v, causal), 200)
+            if min(ms, plain_ms, library_ms) <= 0.0:
+                raise SystemExit("chip_smoke: the profiler saw no device time for K1's timing")
+            pairs = n * n if not causal else n * (n + 1) // 2
+            flops = 4 * bh * pairs * d
+            nbytes = 4 * bh * n * d * q.element_size() + bh * n * 4
+            t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            ex_ms = exp_bound_ms(bh, pairs, clock_hz)
+            log(f"[kernels] K1 bh={bh} n={n} d={d} bf16 causal={causal}, device ms per call: "
+                f"kernel {ms:.5f}, plain {plain_ms:.5f}, sdpa {library_ms:.5f}; bound "
+                f"{bound_ms:.6f} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), exp bound "
+                f"{ex_ms:.6f} ({bh * pairs / 1e6:.3f} M ex2); back-to-back calls by CUDA "
+                f"events {event_ms:.5f} (K1) and {library_event_ms:.5f} (sdpa) ms")
+            if (n, causal) == (1125, False):
+                row = {
+                    "name": "flash_attention_fwd",
+                    "route": "cuda",
+                    "source": "jen1_tpu_torch/csrc/flash_attention_fwd.cu",
+                    "replaces": "jen1_tpu/ops/flash_attention.py:45",
+                    "max_abs_err": err,
+                    "ms": ms,
+                    "event_ms": event_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "exp_bound_ms": ex_ms,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": library_ms,
+                }
+    return row
 
 
 def int8_case(torch, im, gen, m, k, n, dtype):
@@ -448,57 +559,71 @@ def int8_kernel_row(torch) -> dict:
             "bound_by": "operations" if sum_ops >= sum_bytes else "bytes", **row}
 
 
-def time_backward(torch, F, fa, gen) -> list:
-    """K2 and K3 at the train step's shapes (B*H = 32 and 16, N = 1125,
-    D = 16, bf16, both causal values), each checked once more, beside the
-    plain backward (both gradients) and SDPA's backward (all three
-    gradients together). The record rows are those of B*H = 32, non-causal."""
-    n, d = 1125, 16
+def time_backward(torch, F, fa, gen, clock_hz: float) -> list:
+    """K2 and K3 at the train step's shape (B*H = 32, N = 1125, D = 16,
+    bf16, both causal values), each checked once more, by device time
+    beside the CUDA-event time of back-to-back calls, the plain backward
+    (both gradients) and SDPA's backward (all three gradients together).
+    The record rows are the non-causal ones."""
+    bh, n, d = 32, 1125, 16
     rows = {}
-    for bh in (32, 16):
-        for causal in (False, True):
-            q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, bh, n, d,
-                                                    torch.bfloat16, causal)
-            errs = check_bwd(torch, fa, gen, bh, n, d, "bfloat16", torch.bfloat16, causal)
-            ms_dq = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, causal), 100)
-            ms_dkv = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, causal), 100)
-            plain = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
-                q, k, v, o, lse, do, causal), 30)
-            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-            sdpa = time_ms(torch, lambda: torch.autograd.grad(
-                out, (qg, kg, vg), do, retain_graph=True), 100)
-            # work this causal setting needs: N^2 pairs, or N(N+1)/2
-            pairs = n * n if not causal else n * (n + 1) // 2
-            es = q.element_size()
-            for name, ms, fl, nbytes, err in (
-                ("flash_attention_bwd_dq", ms_dq, 6 * bh * pairs * d,
-                 5 * bh * n * d * es + 2 * bh * n * 4, errs["dq"][0]),
-                ("flash_attention_bwd_dkv", ms_dkv, 8 * bh * pairs * d,
-                 6 * bh * n * d * es + 2 * bh * n * 4, max(errs["dk"][0], errs["dv"][0])),
-            ):
-                t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-                bound = max(t_ops, t_bytes) * 1e3
-                log(f"[kernels] {name} bh={bh} n={n} d={d} bf16 causal={causal}: kernel "
-                    f"{ms:.5f} ms, plain (dq+dk+dv) {plain:.5f} ms, sdpa backward {sdpa:.5f} ms, "
-                    f"bound {bound:.6f} ms ({fl / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-                if bh == 32 and not causal:
-                    rows[name] = {
-                        "name": name,
-                        "route": "cuda",
-                        "source": "jen1_tpu_torch/csrc/flash_attention_bwd.cu",
-                        "replaces": ("jen1_tpu/ops/flash_attention.py:173"
-                                     if name.endswith("dq") else
-                                     "jen1_tpu/ops/flash_attention.py:222"),
-                        "max_abs_err": err,
-                        "ms": ms,
-                        "plain_ms": plain,
-                        "bound_ms": bound,
-                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                        "library_ms": sdpa,
-                    }
+    for causal in (False, True):
+        q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, bh, n, d,
+                                                torch.bfloat16, causal)
+        errs = check_bwd(torch, fa, gen, bh, n, d, "bfloat16", torch.bfloat16, causal)
+        args = [(q, k, v, do, lse, delta, causal)]
+        timed = {}
+        for name, fn in (("flash_attention_bwd_dq", fa.flash_attention_bwd_dq),
+                         ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv)):
+            timed[name] = (device_ms(torch, fn, args, 100),
+                           time_ms(torch, lambda: fn(*args[0]), 100))
+        plain = device_ms(torch, fa.flash_attention_bwd_reference,
+                          [(q, k, v, o, lse, do, causal)], 20)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+
+        def sdpa_backward():
+            return torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+        sdpa = device_ms(torch, sdpa_backward, [()], 100)
+        sdpa_event = time_ms(torch, sdpa_backward, 100)
+        if min(plain, sdpa, *(t[0] for t in timed.values())) <= 0.0:
+            raise SystemExit("chip_smoke: the profiler saw no device time for K2/K3's timing")
+        # work this causal setting needs: N^2 pairs, or N(N+1)/2
+        pairs = n * n if not causal else n * (n + 1) // 2
+        es = q.element_size()
+        ex_ms = exp_bound_ms(bh, pairs, clock_hz)
+        for name, fl, nbytes, err in (
+            ("flash_attention_bwd_dq", 6 * bh * pairs * d,
+             5 * bh * n * d * es + 2 * bh * n * 4, errs["dq"][0]),
+            ("flash_attention_bwd_dkv", 8 * bh * pairs * d,
+             6 * bh * n * d * es + 2 * bh * n * 4, max(errs["dk"][0], errs["dv"][0])),
+        ):
+            ms, event_ms = timed[name]
+            t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+            bound = max(t_ops, t_bytes) * 1e3
+            log(f"[kernels] {name} bh={bh} n={n} d={d} bf16 causal={causal}, device ms per "
+                f"call: kernel {ms:.5f}, plain (dq+dk+dv) {plain:.5f}, sdpa backward "
+                f"{sdpa:.5f}; bound {bound:.6f} ({fl / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), "
+                f"exp bound {ex_ms:.6f}; back-to-back calls by CUDA events {event_ms:.5f} "
+                f"(kernel) and {sdpa_event:.5f} (sdpa backward) ms")
+            if not causal:
+                rows[name] = {
+                    "name": name,
+                    "route": "cuda",
+                    "source": "jen1_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": ("jen1_tpu/ops/flash_attention.py:173"
+                                 if name.endswith("dq") else
+                                 "jen1_tpu/ops/flash_attention.py:222"),
+                    "max_abs_err": err,
+                    "ms": ms,
+                    "event_ms": event_ms,
+                    "plain_ms": plain,
+                    "bound_ms": bound,
+                    "exp_bound_ms": ex_ms,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": sdpa,
+                }
     return [rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"]]
 
 
@@ -734,7 +859,7 @@ def phase_main(torch) -> int:
     log(f"[main] warm-up request {time.perf_counter() - t0:.3f} s, shape {out.shape}")
 
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
     launches = []
     outs = []
     for prompt, seed in SLICE_PROMPTS:
@@ -753,7 +878,8 @@ def phase_main(torch) -> int:
             f"finite {bool(np.isfinite(out).all())}; "
             f"rms {float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
     total, bwd = fa.LAUNCHES, (fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
-    log(f"[main] peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    log(f"[main] peak device memory {torch.cuda.max_memory_allocated()} bytes; K1 launches "
+        f"{total}, {fa.LAUNCHES_MMA} on the tensor-core route")
     for out in outs:
         if out.shape != (1, 2, samples) or not np.isfinite(out).all():
             raise SystemExit(f"chip_smoke: bad output shape {out.shape} or non-finite values")
@@ -763,9 +889,14 @@ def phase_main(torch) -> int:
         raise SystemExit(f"chip_smoke: flash launches per request {launches}, want {expected}")
     if bwd != (0, 0):
         raise SystemExit(f"chip_smoke: generation launched backward kernels {bwd}")
+    if fa.LAUNCHES_MMA != total:
+        raise SystemExit(f"chip_smoke: {total - fa.LAUNCHES_MMA} of {total} K1 launches "
+                         "missed the tensor-core route")
     prompt, seed = SLICE_PROMPTS[0]
-    profile_window(torch, "profile", f"{PROFILE_STEPS}-step request", lambda: jen1.generate(
-        prompt, seed=seed, steps=PROFILE_STEPS, seconds=SLICE_SECONDS))
+    by_name = profile_window(torch, "profile", f"{PROFILE_STEPS}-step request",
+                             lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                                                   seconds=SLICE_SECONDS))
+    log_kernel_time(by_name, "profile", ("flash_fwd_mma",), "K1", "the profiled request")
     return total
 
 
@@ -953,6 +1084,13 @@ def is_port_kernel(name: str) -> bool:
     return "flash_" in name or "int8w_" in name
 
 
+def log_kernel_time(by_name: dict, tag: str, keys, what: str, where: str) -> None:
+    """The device time and launches of the kernels whose names hold a key."""
+    hits = [(n, t) for name, (n, t) in by_name.items() if any(key in name for key in keys)]
+    log(f"[{tag}] {what} device time {sum(t for _, t in hits):.6f} s in "
+        f"{sum(n for n, _ in hits)} launches in {where}")
+
+
 def phase_train(torch) -> tuple:
     """The training slice at full width; returns the K1/K2/K3 launches of
     the timed steps."""
@@ -1013,22 +1151,30 @@ def phase_train(torch) -> tuple:
 
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    fa.LAUNCHES_MMA = fa.LAUNCHES_DKV_MMA = 0
     walls, per_step = [], []
     for i in range(1, TRAIN_STEPS + 1):
         b = launch_counts()
         walls.append(step(TRAIN_WARMUP + i, i)[1])
         per_step.append(tuple(a - c for a, c in zip(launch_counts(), b)))
     total = launch_counts()
+    mma = (fa.LAUNCHES_MMA, fa.LAUNCHES_DKV_MMA)
     med = statistics.median(walls)
     log(f"[train] {TRAIN_STEPS} timed steps: wall median {med:.4f} s, min {min(walls):.4f} s, "
         f"max {max(walls):.4f} s; audio-seconds trained per second "
         f"{TRAIN_BATCH * TRAIN_SECONDS / med:.3f}; peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes; K1/K2/K3 launches per step {per_step}")
+        f"{torch.cuda.max_memory_allocated()} bytes; K1/K2/K3 launches per step {per_step}; "
+        f"K1/K3 on the tensor-core route {mma} of {(total[0], total[2])}")
     if any(s != (TRAIN_LAUNCHES,) * 3 for s in per_step):
         raise SystemExit(f"chip_smoke: K1/K2/K3 launches per step {per_step}, "
                          f"want {TRAIN_LAUNCHES} each")
-    profile_window(torch, "train-profile", "one train step",
-                   lambda: step(TRAIN_WARMUP + TRAIN_STEPS + 1, TRAIN_STEPS + 1))
+    if mma != (total[0], total[2]):
+        raise SystemExit(f"chip_smoke: K1/K3 launches on the tensor-core route {mma}, "
+                         f"want {(total[0], total[2])}")
+    by_name = profile_window(torch, "train-profile", "one train step",
+                             lambda: step(TRAIN_WARMUP + TRAIN_STEPS + 1, TRAIN_STEPS + 1))
+    log_kernel_time(by_name, "train-profile", ("flash_fwd_mma", "flash_bwd_dkv_mma"), "K1+K3",
+                    "the profiled step")
     return total
 
 
@@ -1043,7 +1189,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    rows = phase_kernels(torch)
+    rows = phase_kernels(torch, device["sm_clock_hz"])
     phase_small(torch)
     phase_small_gdm(torch)
     phase_small_train(torch)

@@ -10,6 +10,11 @@ launches:
     `_bwd_dq_kernel` (:173-219, :309-324); count `LAUNCHES_DQ`.
   * `flash_attention_bwd_dkv` (same source, K3) replaces `_bwd_dkv_kernel`
     (:222-276, :325-349); count `LAUNCHES_DKV`.
+K1 and K3 have two routes, chosen by `tensor_core_route` from the dtype: bf16
+runs their mma.sync tensor-core kernels (counted again in `LAUNCHES_MMA` and
+`LAUNCHES_DKV_MMA`), which stage tiles with cp.async and so need every
+pointer 16-byte aligned; fp32 runs their scalar fp32 kernels. K2 is scalar
+for both dtypes.
 `flash_attention_reference` and `flash_attention_bwd_reference` compute the
 same functions in plain PyTorch; the tests and `chip_smoke.py` hold the
 kernels against them. `flash_attention` mirrors the JAX `custom_vjp`
@@ -28,10 +33,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-# Launches of each CUDA kernel, incremented by its wrapper only.
+# Launches of each CUDA kernel, incremented by its wrapper only; the _MMA
+# counts are the launches of K1 and K3 that took the tensor-core route.
 LAUNCHES = 0
+LAUNCHES_MMA = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
+LAUNCHES_DKV_MMA = 0
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +56,26 @@ def kernel_head_dim(d: int) -> int:
         if d <= size:
             return size
     raise ValueError(f"flash attention: head dim {d} > {SUPPORTED_HEAD_DIMS[-1]}")
+
+
+def tensor_core_route(dtype: torch.dtype) -> bool:
+    """Whether K1 and K3 run their tensor-core kernels for `dtype`: bf16 at
+    every head dim does; fp32 keeps the scalar kernels, since a TF32 product
+    would miss the fp32 bars. `csrc/flash_attention_{fwd,bwd}.cu` route by
+    the same rule."""
+    return dtype == torch.bfloat16
+
+
+def check_aligned(fn: str, tensors) -> None:
+    """cp.async copies 16 bytes at a time: the tensor-core route takes only
+    tensors whose data starts on a 16-byte boundary."""
+    for name, t in tensors:
+        offset = t.data_ptr() % 16
+        if offset:
+            raise ValueError(
+                f"{fn}: {name} starts {offset} bytes past a 16-byte boundary; the "
+                "tensor-core route loads it with cp.async, which needs 16-byte alignment"
+            )
 
 
 def _causal_mask(n: int, device) -> torch.Tensor:
@@ -148,18 +176,23 @@ def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1: q, k, v contiguous (B, H, N, D) on the card, float32 or
-    bfloat16, D <= 256 -> (o, lse (B*H, N) fp32).
+    bfloat16 (then 16-byte aligned), D <= 256 -> (o, lse (B*H, N) fp32).
 
     Launches on the current stream without synchronising."""
-    global LAUNCHES
-    _check("flash_attention_fwd", q, (("q", q), ("k", k), ("v", v)))
+    global LAUNCHES, LAUNCHES_MMA
+    fn = "flash_attention_fwd"
+    _check(fn, q, (("q", q), ("k", k), ("v", v)))
     b, h, n, d = q.shape
     dp = kernel_head_dim(d)
     qp, kp, vp = (_pad_head_dim(t, dp) for t in (q, k, v))
     o = torch.empty_like(qp)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    mma = tensor_core_route(q.dtype)
+    if mma:
+        check_aligned(fn, (("q", qp), ("k", kp), ("v", vp), ("o", o)))
     _launch("jen1_flash_attention_fwd", q, (qp, kp, vp, o, lse), dp, causal, d**-0.5)
     LAUNCHES += 1
+    LAUNCHES_MMA += mma
     return _unpad(o, d), lse
 
 
@@ -188,17 +221,22 @@ def flash_attention_bwd_dkv(
     lse: torch.Tensor, delta: torch.Tensor, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3: (dk, dv) (B, H, N, D) in q's dtype; arguments as for
-    `flash_attention_bwd_dq`."""
-    global LAUNCHES_DKV
-    _check("flash_attention_bwd_dkv", q, (("q", q), ("k", k), ("v", v), ("do", do)))
-    _check_rows("flash_attention_bwd_dkv", q, (("lse", lse), ("delta", delta)))
+    `flash_attention_bwd_dq` (bf16 ones 16-byte aligned)."""
+    global LAUNCHES_DKV, LAUNCHES_DKV_MMA
+    fn = "flash_attention_bwd_dkv"
+    _check(fn, q, (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_rows(fn, q, (("lse", lse), ("delta", delta)))
     d = q.shape[-1]
     dp = kernel_head_dim(d)
     qp, kp, vp, dop = (_pad_head_dim(t, dp) for t in (q, k, v, do))
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    mma = tensor_core_route(q.dtype)
+    if mma:
+        check_aligned(fn, (("q", qp), ("k", kp), ("v", vp), ("do", dop), ("dk", dk), ("dv", dv)))
     _launch("jen1_flash_attention_bwd_dkv", q, (qp, kp, vp, dop, lse, delta, dk, dv),
             dp, causal, d**-0.5)
     LAUNCHES_DKV += 1
+    LAUNCHES_DKV_MMA += mma
     return _unpad(dk, d), _unpad(dv, d)
 
 

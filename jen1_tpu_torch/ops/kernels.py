@@ -4,10 +4,10 @@ Each `jen1_tpu_torch/csrc/*.cu` source is compiled for sm_90a by its own
 `nvcc` process, all started together, and one more `nvcc` links the
 objects into one shared library with a plain C interface, which is loaded
 with ctypes. The library goes
-into `build/jen1_tpu_torch/<hash of sources and flags>/` at the repository
-root (listed in .gitignore), so a changed source rebuilds and an unchanged
-one loads the cached build. Nothing is built at import: the first call to
-`library()` builds. A missing `nvcc` is an error.
+into `build/jen1_tpu_torch/<hash of sources, headers and flags>/` at the
+repository root (listed in .gitignore), so a changed source or header
+rebuilds and an unchanged tree loads the cached build. Nothing is built at
+import: the first call to `library()` builds. A missing `nvcc` is an error.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def _nvcc() -> str:
 
 def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

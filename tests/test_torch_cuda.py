@@ -10,7 +10,8 @@ kernels are held against their plain versions at the bars of chip_smoke.py:
   * K1: O within 2e-3 in fp32 (tests/test_flash_attention.py's bar); O in
     bf16 within 1e-4 + 1e-2*|O_ref| elementwise, one bf16 rounding step,
     since both sides round an fp32 result; lse, fp32 for either input
-    dtype, within 1e-4.
+    dtype, within 1e-4. bf16 runs K1's and K3's tensor-core route, fp32
+    their scalar route.
   * K2 / K3: dq, dk, dv elementwise within 1e-4*max|ref| in fp32 (the
     kernels and cuBLAS sum the same fp32 products in other orders), plus
     1e-2*|ref| in bf16 (one bf16 rounding step of each side's fp32 result).
@@ -104,6 +105,58 @@ def test_padded_head_dims(cuda_device, d):
     assert (o - ro).abs().max().item() <= 2e-3
     assert (lse - rlse).abs().max().item() <= 1e-4
     check_backward(shape, torch.float32, causal=False, seed=d)
+
+
+def check_forward(q, k, v, causal):
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+    diff = (o.float() - ro.float()).abs()
+    assert bool((diff <= 1e-4 + 1e-2 * ro.float().abs()).all()), diff.max().item()
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_tensor_core_route_head_dims(cuda_device, d, causal):
+    """bf16 K1 and K3 at every head dim the kernels instantiate, at a
+    length with a ragged tile, against their plain versions."""
+    shape = (1, 2, 563, d)
+    q, k, v = randn(cuda_device, shape, torch.bfloat16, seed=d)
+    check_forward(q, k, v, causal)
+    check_backward(shape, torch.bfloat16, causal, seed=d)
+
+
+def test_tensor_core_route_counters(cuda_device):
+    """bf16 at the slice shape (D = 16, N = 1125) takes K1's and K3's
+    tensor-core route; fp32 takes the scalar one."""
+    for dtype, want in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v, do = randn(cuda_device, (1, 2, 1125, 16), dtype, n=4)
+        before = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).reshape(2, 1125)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        after = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
+        assert [a - b for a, b in zip(after, before)] == [1, want, 1, want], dtype
+
+
+def test_misaligned_tensor_refused(cuda_device):
+    """A contiguous bf16 view one element into its storage (2-byte aligned)
+    is refused before any launch: cp.async needs 16-byte alignment."""
+    shape = (1, 2, 256, 16)
+    numel = 2 * 256 * 16
+    buf = torch.zeros(numel + 1, dtype=torch.bfloat16, device=cuda_device)
+    q = buf[1:].view(shape)
+    k, v = randn(cuda_device, shape, torch.bfloat16, n=2)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="q starts 2 bytes past a 16-byte boundary"):
+        fa.flash_attention_fwd(q, k, v)
+    lse = torch.zeros((2, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dkv(q, k, v, k, lse, lse)
+    assert fa.LAUNCHES == before
 
 
 def test_dispatcher_launches_kernel_on_cuda(cuda_device, monkeypatch):

@@ -5,6 +5,7 @@ inputs and weights go through a JAX function and its counterpart in
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -112,3 +113,82 @@ def inject_gdm_draws(monkeypatch, x_t, noises) -> None:
     monkeypatch.setattr(gdm, "step_noise",
                         lambda x, generator, index, uniform=False:
                         torch.from_numpy(noises[index]).to(x.device))
+
+
+# Plain-PyTorch emulations of the arithmetic of the tensor-core (bf16) routes
+# of K1 and K3 (jen1_tpu_torch/csrc/flash_attention_{fwd,bwd}.cu), for the
+# tests only: the kernels run on the card alone, these show on the CPU that
+# their design meets the card's bars against the Pallas kernels. Inputs are
+# bf16 (B*H, N, D); every product takes bf16 operands (exact in fp32) into
+# an fp32 sum, as mma.sync does; P (and dS^T) enter their products as bf16
+# hi + lo (hi the fp32's upper 16 bits, lo = bf16(x - hi): flash_mma.cuh
+# `split`), or as one rounded bf16 copy with `split=False`.
+FLASH_TILE = 64
+LOG2E = 1.4426950408889634
+
+
+def _bf16_parts(x: torch.Tensor, split: bool):
+    if not split:
+        return (x.to(torch.bfloat16).float(),)
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def flash_fwd_mma_emulation(q, k, v, causal: bool, split: bool = True):
+    """K1's bf16 route: 64-key tiles in order, the running max in log2
+    units with sm_scale*log2(e) folded into the exponent, alpha-rescaled
+    sum and accumulator, O = acc * (1 / max(l, 1e-30)) rounded to bf16,
+    lse = m ln 2 + log(l). -> (o bf16, lse fp32 (B*H, N))."""
+    bh, n, d = q.shape
+    scale_log2 = d**-0.5 * LOG2E
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(n)[:, None]
+    m = torch.full((bh, n), float("-inf"))
+    l = torch.zeros(bh, n)
+    acc = torch.zeros(bh, n, d)
+    for k0 in range(0, n, FLASH_TILE):
+        kt, vt = kf[:, k0:k0 + FLASH_TILE], vf[:, k0:k0 + FLASH_TILE]
+        s = qf @ kt.transpose(-1, -2)
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+            s = s.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        m_use = torch.where(m_new == float("-inf"), torch.zeros(()), m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s * scale_log2 - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None]
+        for part in _bf16_parts(p, split):
+            acc = acc + part @ vt
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    o = (acc * (1.0 / l_safe)[..., None]).to(torch.bfloat16)
+    return o, m * math.log(2.0) + torch.log(l_safe)
+
+
+def flash_bwd_dkv_mma_emulation(q, k, v, do, lse, delta, causal: bool, split: bool = True):
+    """K3's bf16 route: 64-query tiles in order, P^T = 2^(S^T sm_scale
+    log2(e) - lse log2(e)) with the causal mask, dS^T = P^T (dP^T - delta),
+    dV += P^T dO and dK += dS^T Q in fp32, dK times sm_scale, both rounded
+    to bf16 at the end. lse and delta are fp32 (B*H, N). -> (dk, dv) bf16."""
+    bh, n, d = q.shape
+    sm_scale = d**-0.5
+    scale_log2 = sm_scale * LOG2E
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    keys = torch.arange(n)[:, None]
+    dk = torch.zeros(bh, n, d)
+    dv = torch.zeros(bh, n, d)
+    for q0 in range(0, n, FLASH_TILE):
+        qt, dot = qf[:, q0:q0 + FLASH_TILE], dof[:, q0:q0 + FLASH_TILE]
+        lt = lse[:, None, q0:q0 + FLASH_TILE] * LOG2E
+        dlt = delta[:, None, q0:q0 + FLASH_TILE]
+        p = torch.exp2(kf @ qt.transpose(-1, -2) * scale_log2 - lt)
+        if causal:
+            queries = torch.arange(q0, q0 + qt.shape[1])[None, :]
+            p = p.masked_fill(keys > queries, 0.0)
+        ds = p * (vf @ dot.transpose(-1, -2) - dlt)
+        for part in _bf16_parts(p, split):
+            dv = dv + part @ dot
+        for part in _bf16_parts(ds, split):
+            dk = dk + part @ qt
+    return (dk * sm_scale).to(torch.bfloat16), dv.to(torch.bfloat16)
