@@ -8,20 +8,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. build       - build the kernel library from jen1_tpu_torch/csrc (one
                    nvcc per source, in parallel) and print its `-Xptxas -v`
                    register and shared-memory use, and the SASS instruction
-                   mix of the main loop of K1's and K3's tensor-core
-                   kernels at head dim 16.
+                   mix of the main loop of K1's, K2's and K3's tensor-core
+                   kernels at head dim 16 and of K4 at the 10-row shapes.
   3. kernels     - K1 (flash forward), K2 (dq) and K3 (dk, dv) against their
                    plain PyTorch versions over N x D x dtype x causal, padded
                    head dims included, with the stated bars, each launch on
-                   its route (bf16: K1/K3 tensor cores; fp32: scalar); what a
-                   dropped ragged tile, or K1 with a single bf16 P, would
-                   shift; K1 timed at the generation shape and N = 4500, K2/K3
+                   its route (bf16: tensor cores; fp32: scalar); what a
+                   dropped ragged tile, K1 with a single bf16 P or K2 with a
+                   single bf16 dS would shift; K1 timed at the generation
+                   shape and N = 4500, K2/K3
                    at the training shape, both causal values, in device time
                    (torch.profiler; CUDA events beside it), beside their plain
                    versions, their bounds (bytes / operations, and the ex2
                    unit) and the SDPA yardsticks. K4 (int8 weight-only
                    matmul) against its plain version at every int8 shape of
-                   the flagship preset and at ragged shapes, x in bf16 and
+                   the flagship preset, at ragged shapes and at K sizes
+                   that take several passes over x, x in bf16 and
                    fp32; what a dropped final K tile or a bf16 dequantize
                    before the product would shift; K4 timed per flagship
                    shape with its weights cold in L2, beside its plain
@@ -51,9 +53,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    torch.profiler.
   9. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
-                   steps, 5 timed steps, launches of K1/K2/K3 per step (K1
-                   and K3 all on the tensor-core route), and one more step
-                   under torch.profiler with K1+K3's device time.
+                   steps, 5 timed steps, launches of K1/K2/K3 per step (all
+                   on the tensor-core route), and one more step under
+                   torch.profiler with K1+K3's and K2's device time.
 The line before the last is the `{"kernels": [...]}` record; the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -136,6 +138,12 @@ INT8_SHAPES = {
     (18, 1024, 512): 4, (36, 1024, 512): 4, (72, 1024, 512): 4,
 }
 INT8_RAGGED = ((130, 96, 72), (1, 1000, 1000), (7, 3072, 1000))
+# K sizes that take K4 through several passes over x, the second with
+# N % 16 != 0 (weights by ordinary loads instead of cp.async)
+INT8_PASSES = ((2, 65536, 32), (3, 40000, 24))
+# K4's instantiation at the 10-row flagship shapes (bf16 x, two m8 tiles),
+# as its mangled name reads in the SASS
+K4_SASS_KEY = "int8w_matmul_kernelI13__nv_bfloat16Li2E"
 # K4 against its plain version, elementwise: |diff| <= INT8_REL_BAR *
 # max|ref|. Both sum the same exact products (bf16 x int8 fits an fp32) in
 # other orders.
@@ -208,14 +216,15 @@ def phase_build() -> None:
     for line in info.log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"[build] {line.strip()}")
-    sass_loops(info.path, ("flash_fwd_mma_kernelILi16E", "flash_bwd_dkv_mma_kernelILi16E"))
+    sass_loops(info.path, ("flash_fwd_mma_kernelILi16E", "flash_bwd_dq_mma_kernelILi16E",
+                           "flash_bwd_dkv_mma_kernelILi16E", K4_SASS_KEY))
 
 
 def sass_loops(lib: Path, kernels) -> None:
-    """For each named kernel, the instructions of its largest loop (the
-    span of its longest backward branch, branches not taken on most tiles
-    included) by opcode, from `cuobjdump -sass`: at head dim 16 the flash
-    kernels' pace follows this count."""
+    """For each named kernel, the instructions of its largest loop that
+    holds an `mma` (the span of its longest such backward branch, branches
+    not taken on most tiles included) by opcode, from `cuobjdump -sass`: at
+    head dim 16 the flash kernels' pace follows this count."""
     import collections
     import re
 
@@ -230,6 +239,9 @@ def sass_loops(lib: Path, kernels) -> None:
         loops = [(where[int(t, 16)], i) for i, (_, ins) in enumerate(code)
                  for t in re.findall(r"\bBRA (?:\S+, )?0x([0-9a-f]+)", ins)
                  if int(t, 16) in where and where[int(t, 16)] < i]
+        # the product loop: K4's x staging loop can be longer
+        loops = [(s, e) for s, e in loops
+                 if any("HMMA" in ins for _, ins in code[s:e + 1])] or loops
         start, end = max(loops, key=lambda se: se[1] - se[0])
         ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
                                   for _, ins in code[start:end + 1] if "@!PT" not in ins)
@@ -261,17 +273,19 @@ def bwd_inputs(torch, fa, gen, bh, n, d, dtype, causal):
 def check_bwd(torch, fa, gen, bh, n, d, dt, dtype, causal) -> dict:
     """K2 and K3 against flash_attention_bwd_reference; returns errors."""
     q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, bh, n, d, dtype, causal)
+    before = (fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV_MMA)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-    before = fa.LAUNCHES_DKV_MMA
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-    mma = fa.LAUNCHES_DKV_MMA - before
+    mma = (fa.LAUNCHES_DQ_MMA - before[0], fa.LAUNCHES_DKV_MMA - before[1])
     torch.cuda.synchronize()
     refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
     errs = {name: grad_violation(out, ref, dt)
             for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
-    ok = all(ratio <= 1.0 for _, ratio in errs.values()) and mma == (dt == "bfloat16")
-    log(f"[kernels] flash_attention_bwd bh={bh} n={n} d={d} {dt} causal={causal} K3 route "
-        f"{'tensor-core' if mma else 'scalar'}: "
+    want = int(dt == "bfloat16")
+    ok = all(ratio <= 1.0 for _, ratio in errs.values()) and mma == (want, want)
+    routes = ["tensor-core" if m else "scalar" for m in mma]
+    log(f"[kernels] flash_attention_bwd bh={bh} n={n} d={d} {dt} causal={causal} K2 route "
+        f"{routes[0]}, K3 route {routes[1]}: "
         + " ".join(f"max|{k}|={e:.3e} ({r:.3f} of bar)" for k, (e, r) in errs.items())
         + f" {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -324,6 +338,21 @@ def k1_shifts(torch, fa, gen, n, d) -> None:
     log(f"[kernels] K1 at n={n} d={d} bf16: " + "; ".join(parts))
 
 
+def k2_shifts(torch, fa, gen, n, d) -> None:
+    """What the bf16 bar on K2's dq would see if dS K took one bf16 copy of
+    dS instead of its hi + lo split, at B*H = 16, bf16, non-causal."""
+    q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, 16, n, d, torch.bfloat16, False)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, False)[0]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    scale = d ** -0.5
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse.reshape(1, 16, n, 1))
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.reshape(1, 16, n, 1))
+    single = ((ds.to(torch.bfloat16).float() @ kf) * scale).to(torch.bfloat16)
+    shift, ratio = grad_violation(single, ref, "bfloat16")
+    log(f"[kernels] K2 at n={n} d={d} bf16: one bf16 dS shifts dq by {shift:.3e} = "
+        f"{ratio:.2f}x the bar")
+
+
 def phase_kernels(torch, clock_hz: float) -> list:
     import torch.nn.functional as F
 
@@ -372,6 +401,8 @@ def phase_kernels(torch, clock_hz: float) -> list:
     dropped_tile_shift(torch, fa, gen, 1125, 16)
     for n in (128, 563, 1125):
         k1_shifts(torch, fa, gen, n, 16)
+    for n in (128, 563, 1125):
+        k2_shifts(torch, fa, gen, n, 16)
 
     rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err)]
     rows += time_backward(torch, F, fa, gen, clock_hz)
@@ -510,7 +541,7 @@ def int8_kernel_row(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
-    for m, k, n in list(INT8_SHAPES) + list(INT8_RAGGED):
+    for m, k, n in list(INT8_SHAPES) + list(INT8_RAGGED) + list(INT8_PASSES):
         for dtype in (torch.bfloat16, torch.float32):
             err = check_int8(torch, im, gen, m, k, n, dtype)
             if (m, k, n) in INT8_SHAPES and dtype == torch.bfloat16:
@@ -1048,7 +1079,7 @@ def phase_flagship(torch) -> int:
                                                    seconds=FLAGSHIP_SECONDS, use_gdm=True))
     k4 = [(n, t) for name, (n, t) in by_name.items() if "int8w_" in name]
     log(f"[flagship-profile] K4 device time {sum(t for _, t in k4):.4f} s in "
-        f"{sum(n for n, _ in k4)} kernel launches (both passes)")
+        f"{sum(n for n, _ in k4)} kernel launches")
     return total
 
 
@@ -1151,30 +1182,31 @@ def phase_train(torch) -> tuple:
 
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
-    fa.LAUNCHES_MMA = fa.LAUNCHES_DKV_MMA = 0
+    fa.LAUNCHES_MMA = fa.LAUNCHES_DQ_MMA = fa.LAUNCHES_DKV_MMA = 0
     walls, per_step = [], []
     for i in range(1, TRAIN_STEPS + 1):
         b = launch_counts()
         walls.append(step(TRAIN_WARMUP + i, i)[1])
         per_step.append(tuple(a - c for a, c in zip(launch_counts(), b)))
     total = launch_counts()
-    mma = (fa.LAUNCHES_MMA, fa.LAUNCHES_DKV_MMA)
+    mma = (fa.LAUNCHES_MMA, fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV_MMA)
     med = statistics.median(walls)
     log(f"[train] {TRAIN_STEPS} timed steps: wall median {med:.4f} s, min {min(walls):.4f} s, "
         f"max {max(walls):.4f} s; audio-seconds trained per second "
         f"{TRAIN_BATCH * TRAIN_SECONDS / med:.3f}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; K1/K2/K3 launches per step {per_step}; "
-        f"K1/K3 on the tensor-core route {mma} of {(total[0], total[2])}")
+        f"K1/K2/K3 on the tensor-core route {mma} of {total}")
     if any(s != (TRAIN_LAUNCHES,) * 3 for s in per_step):
         raise SystemExit(f"chip_smoke: K1/K2/K3 launches per step {per_step}, "
                          f"want {TRAIN_LAUNCHES} each")
-    if mma != (total[0], total[2]):
-        raise SystemExit(f"chip_smoke: K1/K3 launches on the tensor-core route {mma}, "
-                         f"want {(total[0], total[2])}")
+    if mma != total:
+        raise SystemExit(f"chip_smoke: K1/K2/K3 launches on the tensor-core route {mma}, "
+                         f"want {total}")
     by_name = profile_window(torch, "train-profile", "one train step",
                              lambda: step(TRAIN_WARMUP + TRAIN_STEPS + 1, TRAIN_STEPS + 1))
     log_kernel_time(by_name, "train-profile", ("flash_fwd_mma", "flash_bwd_dkv_mma"), "K1+K3",
                     "the profiled step")
+    log_kernel_time(by_name, "train-profile", ("flash_bwd_dq_mma",), "K2", "the profiled step")
     return total
 
 

@@ -18,7 +18,7 @@
 // other head dims, which is exact, and passes the original D^-1/2 as
 // sm_scale).
 //
-// K2 (both dtypes) and K3 in fp32: scalar fp32 FMAs. One CTA owns one
+// K2 and K3 in fp32: scalar fp32 FMAs. One CTA owns one
 // (batch*head, ROWS-row tile): K2 a q tile streaming K/V tiles, dq in
 // registers, key columns >= N masked, causal CTAs stop at the diagonal;
 // K3 a k tile streaming Q/dO tiles (with lse, delta), dk and dv in
@@ -28,6 +28,21 @@
 // and dP) is summed with warp shuffles. Tiles live in dynamic shared
 // memory; above 48 KB (D = 256) the launch raises the kernel's limit
 // first, and a launch that does not fit fails and is reported.
+//
+// K2 in bf16: `flash_bwd_dq_mma_kernel`, tensor cores, the K1 design
+// (flash_attention_fwd.cu) turned to the gradient. A CTA is 4 warps and a
+// 64-row q tile, 16 rows per warp, whose Q and dO A fragments stay in
+// registers (ldmatrix once), with lse log2(e) and delta of the thread's two
+// rows: (ceil(N/64), B*H) CTAs, 576 at the train shape. It loops over key
+// tiles of 64, K and V double-buffered by cp.async (rows >= N zero-filled),
+// in four chunks of 16 keys: S = Q K^T and dP = dO V^T (K and V read by
+// ldmatrix), P = 2^(S sm_scale log2(e) - lse log2(e)) with key columns
+// >= N and the causal mask applied only on the ragged and the diagonal
+// tile, dS = P o (dP - delta); then dq += dS K (K by ldmatrix.trans), dS
+// going from its C fragments straight to an A fragment as bf16 hi + lo, for
+// the reason given for K3 below (JAX multiplies dS in fp32, :212-215).
+// Causal CTAs stop at the diagonal. sm_scale multiplies dq once at the end;
+// each dq element has one writer. Every bf16 head dim takes this route.
 //
 // K3 in bf16: `flash_bwd_dkv_mma_kernel`, tensor cores (mma.sync.m16n8k16,
 // bf16 in, fp32 accumulate; see flash_mma.cuh). A CTA is 4 warps and a
@@ -56,8 +71,9 @@
 // clock per SM are ~9.7 us on 132 SMs at 1.98 GHz. K3's tensor-core route
 // runs per score one FFMA, one ex2, the dS product and two hi + lo splits
 // against 1.5 mma, so, as in K1, the instruction rate of each scheduler
-// with the ex2 and tensor pipes paces it (PERF.md). K2 is still the scalar loop (its
-// redesign is later work).
+// with the ex2 and tensor pipes paces it (PERF.md). K2's tensor-core route
+// runs one FFMA, one ex2, the dS product and one split per score against
+// 1.5 mma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,16 +92,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Tiling per head dim: TPR threads per row, ROWS owned rows per CTA
 // (ROWS*TPR threads), BLOCK streamed rows per shared-memory tile.
@@ -424,6 +435,147 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K2, bf16 route: dq for one 64-row q tile on tensor cores, streaming
+// 64-key tiles of K/V (double-buffered).
+template <int D>
+__global__ void __launch_bounds__(flash_mma::THREADS)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int n, float sm_scale, int causal) {
+  using namespace flash_mma;
+  using L = Layout<D>;
+  constexpr int KSTEPS = L::KSTEPS, NTILES = L::NTILES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // Q and dO tiles, then two stages of K and V tiles: [Q][dO][K0][V0][K1][V1]
+  const uint32_t qs = smem_addr(smem_raw), dos = qs + L::TILE_BYTES;
+  const uint32_t kv0 = qs + 2 * L::TILE_BYTES;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int q0 = blockIdx.x * TILE;
+  const size_t base = (size_t)blockIdx.y * n * D;
+  const bf16 *kg = k + base, *vg = v + base;
+  const Stager<D> stage_tile(threadIdx.x);
+  const Lanes<D> lanes(lane);
+  // the two query rows of this thread's C fragments, their lse (log2
+  // units) and delta; rows >= n read 0 and are never written
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = rows[r] < n;
+    const size_t i = (size_t)blockIdx.y * n + rows[r];
+    lse2[r] = live ? lse[i] * LOG2E : 0.f;
+    del[r] = live ? delta[i] : 0.f;
+  }
+  const float scale_log2 = sm_scale * LOG2E;
+
+  const int k_end = causal ? min(n, q0 + TILE) : n;
+  const int tiles = (k_end + TILE - 1) / TILE;
+  stage_tile(qs, q + base, q0, n);
+  stage_tile(dos, dout + base, q0, n);
+  stage_tile(kv0, kg, 0, n);
+  stage_tile(kv0 + L::TILE_BYTES, vg, 0, n);
+  cp_async_commit();
+
+  uint32_t qf[KSTEPS][4], dof[KSTEPS][4];
+  // dq / sm_scale; at D <= 32 the hi and lo products go to separate halves
+  constexpr int HALVES = D <= 32 ? 2 : 1;
+  float acc[HALVES][NTILES][4];
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int dt = 0; dt < NTILES; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][dt][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const uint32_t kt = kv0 + (t & 1) * 2 * L::TILE_BYTES, vt = kt + L::TILE_BYTES;
+    if (t + 1 < tiles) {
+      const uint32_t next = kv0 + ((t + 1) & 1) * 2 * L::TILE_BYTES;
+      stage_tile(next, kg, (t + 1) * TILE, n);
+      stage_tile(next + L::TILE_BYTES, vg, (t + 1) * TILE, n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        ldmatrix_x4(qf[kk], qs + lanes.a + L::at(warp * 16, kk * 16));
+        ldmatrix_x4(dof[kk], dos + lanes.a + L::at(warp * 16, kk * 16));
+      }
+    }
+    // key columns >= n on the ragged tile; col > row on the diagonal one
+    const int k0 = t * TILE;
+    const bool masked = k0 + TILE > n || (causal && k0 + TILE > q0);
+
+#pragma unroll
+    for (int ch = 0; ch < TILE; ch += 16) {
+      // S = Q K^T and dP = dO V^T: 16 rows x 16 keys, two n8 tiles
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + lanes.b_rows + L::at(ch, kk * 16));
+        mma(s[0], qf[kk], b[0], b[1]);
+        mma(s[1], qf[kk], b[2], b[3]);
+        ldmatrix_x4(b, vt + lanes.b_rows + L::at(ch, kk * 16));
+        mma(dp[0], dof[kk], b[0], b[1]);
+        mma(dp[1], dof[kk], b[2], b[3]);
+      }
+
+      // dS as a bf16 hi + lo A fragment (k = the 16 keys)
+      uint32_t ds_hi[4], ds_lo[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(s[j][e], scale_log2, -lse2[e / 2]));
+          if (masked) {
+            const int col = k0 + ch + j * 8 + 2 * c + (e & 1);
+            if (col >= n || (causal && col > rows[e / 2])) p = 0.f;
+          }
+          ds[e] = p * (dp[j][e] - del[e / 2]);  // sm_scale is applied to dq at the end
+        }
+        split(ds[0], ds[1], ds_hi[2 * j], ds_lo[2 * j]);
+        split(ds[2], ds[3], ds_hi[2 * j + 1], ds_lo[2 * j + 1]);
+      }
+
+      // dq += dS K over the chunk's 16 keys
+#pragma unroll
+      for (int dt = 0; dt < NTILES; dt += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, kt + lanes.b_trans + L::at(ch, dt * 8));
+        mma(acc[0][dt], ds_hi, b[0], b[1]);
+        mma(acc[HALVES - 1][dt], ds_lo, b[0], b[1]);
+        mma(acc[0][dt + 1], ds_hi, b[2], b[3]);
+        mma(acc[HALVES - 1][dt + 1], ds_lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next prefetch refills it
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= n) continue;
+    bf16* row = dq + base + (size_t)rows[r] * D + 2 * c;
+#pragma unroll
+    for (int dt = 0; dt < NTILES; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
+          __floats2bfloat162_rn(total(acc, dt, 2 * r) * sm_scale,
+                                total(acc, dt, 2 * r + 1) * sm_scale);
+  }
+}
+
 // Raise the kernel's dynamic shared-memory limit where the tile needs more
 // than the default 48 KB; the launch after it reports what still does not fit.
 template <typename K>
@@ -440,19 +592,41 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  using Tl = Tiles<D>;
-  auto kernel = flash_bwd_dq_kernel<T, D, Tl::TPR, Tl::ROWS, Tl::BLOCK>;
-  const int smem = 2 * Tl::BLOCK * D * (int)sizeof(float);
+template <int D>
+cudaError_t launch_dq_mma(const Args& a) {
+  using flash_mma::TILE;
+  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  // Q and dO tiles, two stages of K and V tiles
+  const int smem = 6 * flash_mma::Layout<D>::TILE_BYTES;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + Tl::ROWS - 1) / Tl::ROWS, a.bh);
-  kernel<<<grid, Tl::ROWS * Tl::TPR, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.n, a.sm_scale, a.causal);
+  const dim3 grid((a.n + TILE - 1) / TILE, a.bh);
+  kernel<<<grid, flash_mma::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dq), a.n, a.sm_scale, a.causal);
   return cudaGetLastError();
+}
+
+// K2: bf16 takes the tensor-core kernel, fp32 the scalar one.
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dq_mma<D>(a);
+  } else {
+    using Tl = Tiles<D>;
+    auto kernel = flash_bwd_dq_kernel<T, D, Tl::TPR, Tl::ROWS, Tl::BLOCK>;
+    const int smem = 2 * Tl::BLOCK * D * (int)sizeof(float);
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.n + Tl::ROWS - 1) / Tl::ROWS, a.bh);
+    kernel<<<grid, Tl::ROWS * Tl::TPR, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.n, a.sm_scale, a.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <int D>
@@ -516,8 +690,8 @@ int dispatch(const Args& a, int d, int dtype) {
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success);
-// neither synchronises. dtype: 0 = float32, 1 = bfloat16 (for dk/dv the
-// tensor-core route: every pointer 16-byte aligned). sm_scale is the
+// neither synchronises. dtype: 0 = float32, 1 = bfloat16 (the tensor-core
+// routes: every pointer 16-byte aligned). sm_scale is the
 // forward's logit scale (D^-1/2 of the head dim before any padding).
 extern "C" int jen1_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,

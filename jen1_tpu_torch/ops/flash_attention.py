@@ -10,11 +10,11 @@ launches:
     `_bwd_dq_kernel` (:173-219, :309-324); count `LAUNCHES_DQ`.
   * `flash_attention_bwd_dkv` (same source, K3) replaces `_bwd_dkv_kernel`
     (:222-276, :325-349); count `LAUNCHES_DKV`.
-K1 and K3 have two routes, chosen by `tensor_core_route` from the dtype: bf16
-runs their mma.sync tensor-core kernels (counted again in `LAUNCHES_MMA` and
-`LAUNCHES_DKV_MMA`), which stage tiles with cp.async and so need every
-pointer 16-byte aligned; fp32 runs their scalar fp32 kernels. K2 is scalar
-for both dtypes.
+Each has two routes, chosen by `tensor_core_route` from the dtype: bf16
+runs its mma.sync tensor-core kernel (counted again in `LAUNCHES_MMA`,
+`LAUNCHES_DQ_MMA` and `LAUNCHES_DKV_MMA`), which stages tiles with cp.async
+and so needs every pointer 16-byte aligned; fp32 runs its scalar fp32
+kernel.
 `flash_attention_reference` and `flash_attention_bwd_reference` compute the
 same functions in plain PyTorch; the tests and `chip_smoke.py` hold the
 kernels against them. `flash_attention` mirrors the JAX `custom_vjp`
@@ -34,10 +34,11 @@ import torch
 import torch.nn.functional as F
 
 # Launches of each CUDA kernel, incremented by its wrapper only; the _MMA
-# counts are the launches of K1 and K3 that took the tensor-core route.
+# counts are the launches of K1, K2 and K3 that took the tensor-core route.
 LAUNCHES = 0
 LAUNCHES_MMA = 0
 LAUNCHES_DQ = 0
+LAUNCHES_DQ_MMA = 0
 LAUNCHES_DKV = 0
 LAUNCHES_DKV_MMA = 0
 
@@ -59,9 +60,9 @@ def kernel_head_dim(d: int) -> int:
 
 
 def tensor_core_route(dtype: torch.dtype) -> bool:
-    """Whether K1 and K3 run their tensor-core kernels for `dtype`: bf16 at
-    every head dim does; fp32 keeps the scalar kernels, since a TF32 product
-    would miss the fp32 bars. `csrc/flash_attention_{fwd,bwd}.cu` route by
+    """Whether K1, K2 and K3 run their tensor-core kernels for `dtype`: bf16
+    at every head dim does; fp32 keeps the scalar kernels, since a TF32
+    product would miss the fp32 bars. `csrc/flash_attention_{fwd,bwd}.cu` route by
     the same rule."""
     return dtype == torch.bfloat16
 
@@ -203,16 +204,21 @@ def flash_attention_bwd_dq(
     """Launch K2: dq (B, H, N, D) in q's dtype. q, k, v, do as for
     `flash_attention_fwd`; lse (K1's) and delta = rowsum(dO * O) are
     contiguous (B*H, N) fp32."""
-    global LAUNCHES_DQ
-    _check("flash_attention_bwd_dq", q, (("q", q), ("k", k), ("v", v), ("do", do)))
-    _check_rows("flash_attention_bwd_dq", q, (("lse", lse), ("delta", delta)))
+    global LAUNCHES_DQ, LAUNCHES_DQ_MMA
+    fn = "flash_attention_bwd_dq"
+    _check(fn, q, (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_rows(fn, q, (("lse", lse), ("delta", delta)))
     d = q.shape[-1]
     dp = kernel_head_dim(d)
     qp, kp, vp, dop = (_pad_head_dim(t, dp) for t in (q, k, v, do))
     dq = torch.empty_like(qp)
+    mma = tensor_core_route(q.dtype)
+    if mma:
+        check_aligned(fn, (("q", qp), ("k", kp), ("v", vp), ("do", dop), ("dq", dq)))
     _launch("jen1_flash_attention_bwd_dq", q, (qp, kp, vp, dop, lse, delta, dq),
             dp, causal, d**-0.5)
     LAUNCHES_DQ += 1
+    LAUNCHES_DQ_MMA += mma
     return _unpad(dq, d)
 
 

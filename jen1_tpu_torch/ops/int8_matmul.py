@@ -28,15 +28,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Calls of `matmul_int8w_cuda` (each launches K4: one pass, or a split-K
-# pass and its reduction), incremented by the wrapper only.
+# Calls of `matmul_int8w_cuda` (each launches K4 once), incremented by the
+# wrapper only.
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K4's tile: BLOCK_N output columns and BLOCK_K rows of K per step; the
-# split over K aims at TARGET_CTAS blocks (two per SM of an H100).
-BLOCK_N, BLOCK_K = 64, 64
-TARGET_CTAS = 264
+# K4's tile: BLOCK_N output columns and BLOCK_K rows of K per ring stage;
+# the split over K, across the blocks of one cluster (at most MAX_SPLITS,
+# the portable cluster size), aims at TARGET_CTAS blocks (about one per SM
+# of an H100).
+BLOCK_N, BLOCK_K = 64, 128
+MAX_SPLITS = 8
+TARGET_CTAS = 128
 
 QWeights = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -65,27 +68,30 @@ def split_k(m: int, k: int, n: int) -> Tuple[int, int]:
 
     One block owns BLOCK_N columns, `rows_per_block(m)` rows and a range of
     K. At the UNet's deep-level shapes (M <= 72, N <= 1024) the M x N grid
-    alone is 8-48 blocks on 132 SMs, so K is split until the grid has about
-    TARGET_CTAS blocks; every split is non-empty."""
-    bm = rows_per_block(m)
-    base = -(-n // BLOCK_N) * -(-m // bm)
+    alone is 8-24 blocks on 132 SMs, so K is split, into at most MAX_SPLITS
+    ranges (one cluster): the fewest splits whose grid has TARGET_CTAS
+    blocks, or the most one cluster takes where none has; every split is
+    non-empty."""
+    base = -(-n // BLOCK_N) * -(-m // rows_per_block(m))
     k_tiles = -(-k // BLOCK_K)
-    want = max(1, min(k_tiles, -(-TARGET_CTAS // base)))
-    chunk = -(-k_tiles // want)
+    chunk = -(-k_tiles // MAX_SPLITS)
+    while chunk < k_tiles and base * -(-k_tiles // (chunk + 1)) >= TARGET_CTAS:
+        chunk += 1
     return -(-k_tiles // chunk), chunk
 
 
 def rows_per_block(m: int) -> int:
-    """K4's rows per block: 8, 16 or 32 (2, 4 or 8 per thread)."""
-    return 8 if m <= 8 else (16 if m <= 16 else 32)
+    """K4's rows per block: M rounded up to 8, at most 32 (M > 32 tiles)."""
+    return min(32, -(-m // 8) * 8)
 
 
 def matmul_int8w_cuda(
     x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor
 ) -> torch.Tensor:
-    """Launch K4: x (M, K) bf16 or fp32, w8 (K, N) int8, scale (N,) fp32,
-    all contiguous on one card -> (M, N) fp32. Launches on the current
-    stream without synchronising; a refused launch raises."""
+    """Launch K4: x (M, K) bf16 or fp32, w8 (K, N) int8 starting on a
+    16-byte boundary (K4 streams it by cp.async), scale (N,) fp32, all
+    contiguous on one card -> (M, N) fp32. Launches on the current stream
+    without synchronising; a refused launch raises."""
     global LAUNCHES
     from jen1_tpu_torch.ops.kernels import library
 
@@ -101,12 +107,14 @@ def matmul_int8w_cuda(
     if k != k2 or tuple(scale.shape) != (n,) or min(m, k, n) < 1:
         raise ValueError(f"matmul_int8w_cuda: shapes {tuple(x.shape)}, {tuple(w8.shape)}, "
                          f"{tuple(scale.shape)}")
+    offset = w8.data_ptr() % 16
+    if offset:
+        raise ValueError(f"matmul_int8w_cuda: w8 starts {offset} bytes past a 16-byte "
+                         "boundary; K4 streams it with cp.async, which needs 16-byte alignment")
     splits, chunk = split_k(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else out)
     err = library().jen1_int8w_matmul(
-        x.data_ptr(), w8.data_ptr(), scale.data_ptr(), work.data_ptr(), out.data_ptr(),
+        x.data_ptr(), w8.data_ptr(), scale.data_ptr(), out.data_ptr(),
         m, k, n, _DTYPE_CODES[x.dtype], splits, chunk * BLOCK_K,
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -128,17 +128,22 @@ def test_tensor_core_route_head_dims(cuda_device, d, causal):
 
 
 def test_tensor_core_route_counters(cuda_device):
-    """bf16 at the slice shape (D = 16, N = 1125) takes K1's and K3's
+    """bf16 at the slice shape (D = 16, N = 1125) takes K1's, K2's and K3's
     tensor-core route; fp32 takes the scalar one."""
+
+    def counts():
+        return (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA,
+                fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
+
     for dtype, want in ((torch.bfloat16, 1), (torch.float32, 0)):
         q, k, v, do = randn(cuda_device, (1, 2, 1125, 16), dtype, n=4)
-        before = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
+        before = counts()
         o, lse = fa.flash_attention_fwd(q, k, v)
         delta = (do.float() * o.float()).sum(-1).reshape(2, 1125)
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
         fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
-        after = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
-        assert [a - b for a, b in zip(after, before)] == [1, want, 1, want], dtype
+        assert [a - b for a, b in zip(counts(), before)] == [1, want] * 3, dtype
 
 
 def test_misaligned_tensor_refused(cuda_device):
@@ -156,7 +161,10 @@ def test_misaligned_tensor_refused(cuda_device):
     lse = torch.zeros((2, 256), device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_bwd_dkv(q, k, v, k, lse, lse)
-    assert fa.LAUNCHES == before
+    dq_before = fa.LAUNCHES_DQ
+    with pytest.raises(ValueError, match="flash_attention_bwd_dq: q starts 2 bytes past"):
+        fa.flash_attention_bwd_dq(q, k, v, k, lse, lse)
+    assert fa.LAUNCHES == before and fa.LAUNCHES_DQ == dq_before
 
 
 def test_dispatcher_launches_kernel_on_cuda(cuda_device, monkeypatch):
@@ -213,15 +221,31 @@ def int8_inputs(device, m, k, n, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(10, 3072, 1024), (130, 96, 72)])
+@pytest.mark.parametrize("m,k,n", [(10, 3072, 1024), (130, 96, 72), (72, 1024, 512),
+                                   (2, 65536, 32), (3, 40000, 24)])
 def test_int8_kernel_matches_plain_version(cuda_device, m, k, n, dtype):
-    """A flagship shape (a CFG-doubled deep-level project) and a ragged one."""
+    """Flagship shapes (a CFG-doubled deep-level project; M > 16 over three
+    row tiles), a ragged one, and two whose K needs several passes over x
+    (the second with N % 16 != 0, so its weights take ordinary loads)."""
     x, w8, scale = int8_inputs(cuda_device, m, k, n, dtype)
     out = im.matmul_int8w_cuda(x, w8, scale)
     torch.cuda.synchronize()
     ref = im.matmul_int8w_plain(x, w8, scale)
     assert out.shape == (m, n) and out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_int8_misaligned_weights_refused(cuda_device):
+    """A contiguous w8 view one byte into its storage is refused before any
+    launch: K4 streams the weights by cp.async, which needs 16 bytes."""
+    x, w8, scale = int8_inputs(cuda_device, 6, 1024, 1024, torch.bfloat16)
+    buf = torch.zeros(w8.numel() + 16, dtype=torch.int8, device=cuda_device)
+    view = buf[1:1 + w8.numel()].view(w8.shape)
+    view.copy_(w8)
+    before = im.LAUNCHES
+    with pytest.raises(ValueError, match="w8 starts 1 bytes past a 16-byte boundary"):
+        im.matmul_int8w_cuda(x, view, scale)
+    assert im.LAUNCHES == before
 
 
 def test_int8_dispatcher_launches_kernel_on_cuda(cuda_device, monkeypatch):

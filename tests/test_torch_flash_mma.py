@@ -1,16 +1,19 @@
-"""The tensor-core (bf16) routes of K1 and K3, emulated on the CPU.
+"""The tensor-core (bf16) routes of K1, K2 and K3, emulated on the CPU.
 
-For bf16 inputs K1 (flash forward) and K3 (dk/dv) run mma.sync kernels
-(jen1_tpu_torch/csrc/flash_attention_{fwd,bwd}.cu), which run only on the
-card (tests/test_torch_cuda.py, chip_smoke.py). Here the plain-PyTorch
+For bf16 inputs K1 (flash forward), K2 (dq) and K3 (dk/dv) run mma.sync
+kernels (jen1_tpu_torch/csrc/flash_attention_{fwd,bwd}.cu), which run only
+on the card (tests/test_torch_cuda.py, chip_smoke.py). Here the plain-PyTorch
 emulation of their arithmetic in tests/torch_port_util.py (64-row / 64-key
-tiles, the online-softmax rescale order, the bf16 hi + lo split of P and
+tiles, the online-softmax rescale order, the bf16 hi + lo split of P, dS and
 dS^T, fp32 sums, the final bf16 rounding) is held against the JAX Pallas
 kernels in interpret mode on the same bf16 inputs, at the card's bars:
-  O:      |diff| <= 1e-4 + 1e-2 |O_ref| elementwise (one bf16 step of a
-          rounded fp32 result); lse: |diff| <= 1e-4;
-  dk, dv: |diff| <= 1e-4 max|ref| + 1e-2 |ref| elementwise.
+  O:          |diff| <= 1e-4 + 1e-2 |O_ref| elementwise (one bf16 step of a
+              rounded fp32 result); lse: |diff| <= 1e-4;
+  dq, dk, dv: |diff| <= 1e-4 max|ref| + 1e-2 |ref| elementwise.
+The K2 and K3 tests share one Pallas forward + backward per case.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,10 @@ import torch
 
 from jen1_tpu.ops.flash_attention import _flash_backward, _flash_forward_lse
 from jen1_tpu_torch.ops import flash_attention as fa
-from torch_port_util import flash_bwd_dkv_mma_emulation, flash_fwd_mma_emulation, randn, rng
+from torch_port_util import (
+    flash_bwd_dkv_mma_emulation, flash_bwd_dq_mma_emulation, flash_fwd_mma_emulation, randn,
+    rng,
+)
 
 BH = 2  # B = 1, H = 2
 
@@ -80,34 +86,67 @@ def test_k1_single_bf16_p_would_miss_the_bar():
     assert o_violation(split, o_ref) <= 1.0 < o_violation(single, o_ref)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32])
-@pytest.mark.parametrize("n", [150, 563])
-def test_k3_tensor_core_route_meets_the_card_bar(n, d, causal):
-    """dk and dv from the forward's O and lse (both from the Pallas
-    forward), delta = rowsum(dO O) in fp32 as the wrapper computes it."""
+@functools.lru_cache(maxsize=None)
+def jax_backward(n, d, causal):
+    """One Pallas forward + backward (interpret mode) per (n, d, causal),
+    shared by the K2 and K3 tests: the bf16 inputs (B*H, N, D), lse and
+    delta = rowsum(dO O) in fp32 as the wrapper computes it, and the
+    reference (dq, dk, dv) (B*H, N, D) as fp32-held bf16 values."""
     q, k, v, do = bf16_inputs(n, d, seed=100 + n + d, count=4)
 
     def forward_backward(q, k, v, g):
         o, lse = _flash_forward_lse(q, k, v, causal)
         return o, lse, _flash_backward(q, k, v, o, lse, g, causal)
 
-    o, lse, (_, dk_ref, dv_ref) = jax.jit(forward_backward)(*map(to_jax, (q, k, v, do)))
+    o, lse, grads = jax.jit(forward_backward)(*map(to_jax, (q, k, v, do)))
     o, lse = to_torch(o), to_torch(lse)[:, :n, 0]
     delta = (do.float() * o).sum(-1).reshape(BH, n)
-    dk, dv = flash_bwd_dkv_mma_emulation(rows(q), rows(k), rows(v), rows(do), lse, delta,
-                                         causal)
+    return [rows(t) for t in (q, k, v, do)], lse, delta, [rows(to_torch(g)) for g in grads]
+
+
+def grad_violation(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max of |diff| / (1e-4 max|ref| + 1e-2 |ref|): the bar holds while <= 1."""
+    bar = 1e-4 * ref.abs().max() + 1e-2 * ref.abs()
+    return ((out.float() - ref).abs() / bar).max().item()
+
+
+GRAD_CASES = pytest.mark.parametrize("n,d,causal", [
+    (n, d, causal) for n in (150, 563) for d in (16, 32) for causal in (False, True)])
+
+
+@GRAD_CASES
+def test_k2_tensor_core_route_meets_the_card_bar(n, d, causal):
+    """dq from the forward's O and lse (both from the Pallas forward)."""
+    inputs, lse, delta, (dq_ref, _, _) = jax_backward(n, d, causal)
+    dq = flash_bwd_dq_mma_emulation(*inputs, lse, delta, causal)
+    assert dq.dtype == torch.bfloat16
+    assert grad_violation(dq, dq_ref) <= 1.0
+
+
+def test_k2_single_bf16_ds_would_miss_the_bar():
+    """Why dS enters dS K as bf16 hi + lo: with one bf16 copy of dS the same
+    emulation is off by more than the dq bar."""
+    inputs, lse, delta, (dq_ref, _, _) = jax_backward(150, 16, False)
+    split = flash_bwd_dq_mma_emulation(*inputs, lse, delta, False)
+    single = flash_bwd_dq_mma_emulation(*inputs, lse, delta, False, split=False)
+    assert grad_violation(split, dq_ref) <= 1.0 < grad_violation(single, dq_ref)
+
+
+@GRAD_CASES
+def test_k3_tensor_core_route_meets_the_card_bar(n, d, causal):
+    """dk and dv from the forward's O and lse (both from the Pallas
+    forward), delta = rowsum(dO O) in fp32 as the wrapper computes it."""
+    inputs, lse, delta, (_, dk_ref, dv_ref) = jax_backward(n, d, causal)
+    dk, dv = flash_bwd_dkv_mma_emulation(*inputs, lse, delta, causal)
     for out, ref in ((dk, dk_ref), (dv, dv_ref)):
-        ref = rows(to_torch(ref))
         assert out.dtype == torch.bfloat16
-        bar = 1e-4 * ref.abs().max() + 1e-2 * ref.abs()
-        assert bool(((out.float() - ref).abs() <= bar).all())
+        assert grad_violation(out, ref) <= 1.0
 
 
 @pytest.mark.parametrize("dtype,tensor_cores", [(torch.bfloat16, True), (torch.float32, False)])
 def test_route_follows_the_dtype(dtype, tensor_cores):
-    """bf16 takes K1's and K3's tensor-core kernels at every head dim the
-    wrappers launch (16-256); fp32 keeps the scalar ones."""
+    """bf16 takes K1's, K2's and K3's tensor-core kernels at every head dim
+    the wrappers launch (16-256); fp32 keeps the scalar ones."""
     assert fa.tensor_core_route(dtype) is tensor_cores
 
 

@@ -35,7 +35,8 @@ from jen1_tpu_torch.models.unet import unet_from_model_config as port_unet
 from jen1_tpu_torch.ops import conv as pconv
 from jen1_tpu_torch.ops import int8_matmul as pint8
 from torch_port_util import (
-    assert_close, flash_model_configs, load, np_tree, randn, random_params, rng,
+    assert_close, flash_model_configs, int8_as_bf16_magic, int8w_mma_emulation, load, np_tree,
+    randn, random_params, rng,
 )
 
 T = torch.from_numpy
@@ -91,6 +92,44 @@ def test_matmul_int8w_matches_jax(m, k, n, dtype):
     out = pint8.matmul_int8w(px, T(np.array(w8)), T(np.array(s)))
     assert out.shape == (m, n) and out.dtype == torch.float32
     assert_rel(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(10, 3072, 1024), (72, 1024, 512), (130, 96, 72)])
+def test_k4_partition_meets_the_card_bar(m, k, n):
+    """K4's K partition, cluster rank order and int8 -> bf16
+    bit conversion (emulated in plain PyTorch) against the Pallas kernel
+    in interpret mode, bf16 x, within 1e-4 * max|ref|."""
+    g = rng(m * 7 + k + n)
+    x = randn(g, m, k)
+    w8, s = jint8.quantize_weight(jnp.asarray(randn(g, k, n) * 0.05))
+    ref = jint8.matmul_int8w(jnp.asarray(x, jnp.bfloat16), w8, s)
+    out = int8w_mma_emulation(T(x).to(torch.bfloat16), T(np.array(w8)), T(np.array(s)))
+    assert out.shape == (m, n)
+    assert_rel(out, ref)
+
+
+def test_k4_splits_fill_the_card_at_flagship_shapes():
+    """Every flagship shape's grid (ceil(N / 64) x M tiles x splits) has at
+    least 128 blocks where one cluster's 8 splits allow it; the 18-row
+    shape (8 column tiles, one row tile) gets all 8."""
+    flagship = [(10, 3072, 1024), (10, 1024, 1024), (10, 6144, 1024), (10, 2048, 1024),
+                (6, 3072, 1024), (6, 1024, 1024), (6, 6144, 1024), (6, 2048, 1024),
+                (18, 1024, 512), (36, 1024, 512), (72, 1024, 512)]
+    for m, k, n in flagship:
+        splits, chunk = pint8.split_k(m, k, n)
+        base = -(-n // pint8.BLOCK_N) * -(-m // pint8.rows_per_block(m))
+        assert 1 <= splits <= pint8.MAX_SPLITS, (m, k, n, splits)
+        assert base * splits >= 128 or splits == pint8.MAX_SPLITS, (m, k, n, splits)
+        assert (splits - 1) * chunk * pint8.BLOCK_K < k <= splits * chunk * pint8.BLOCK_K
+
+
+def test_int8_to_bf16_bit_trick_is_exact():
+    """The kernel's int8 -> bf16 bit operations give float(w8) exactly for
+    all 256 int8 values, -128 included."""
+    w8 = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    out = int8_as_bf16_magic(w8)
+    assert torch.equal(out, w8.float())
+    assert torch.equal(out.to(torch.bfloat16).float(), out)
 
 
 def test_scale_applies_after_the_sum():

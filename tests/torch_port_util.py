@@ -116,11 +116,11 @@ def inject_gdm_draws(monkeypatch, x_t, noises) -> None:
 
 
 # Plain-PyTorch emulations of the arithmetic of the tensor-core (bf16) routes
-# of K1 and K3 (jen1_tpu_torch/csrc/flash_attention_{fwd,bwd}.cu), for the
-# tests only: the kernels run on the card alone, these show on the CPU that
-# their design meets the card's bars against the Pallas kernels. Inputs are
-# bf16 (B*H, N, D); every product takes bf16 operands (exact in fp32) into
-# an fp32 sum, as mma.sync does; P (and dS^T) enter their products as bf16
+# of K1, K2 and K3 (jen1_tpu_torch/csrc/flash_attention_{fwd,bwd}.cu), for
+# the tests only: the kernels run on the card alone, these show on the CPU
+# that their design meets the card's bars against the Pallas kernels. Inputs
+# are bf16 (B*H, N, D); every product takes bf16 operands (exact in fp32)
+# into an fp32 sum, as mma.sync does; P, dS and dS^T enter their products as bf16
 # hi + lo (hi the fp32's upper 16 bits, lo = bf16(x - hi): flash_mma.cuh
 # `split`), or as one rounded bf16 copy with `split=False`.
 FLASH_TILE = 64
@@ -192,3 +192,60 @@ def flash_bwd_dkv_mma_emulation(q, k, v, do, lse, delta, causal: bool, split: bo
         for part in _bf16_parts(ds, split):
             dk = dk + part @ qt
     return (dk * sm_scale).to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def flash_bwd_dq_mma_emulation(q, k, v, do, lse, delta, causal: bool, split: bool = True):
+    """K2's bf16 route: 64-key tiles in order, P = 2^(S sm_scale log2(e) -
+    lse log2(e)) with the causal mask, dS = P (dP - delta), dq += dS K in
+    fp32, dq times sm_scale and rounded to bf16 at the end. lse and delta are
+    fp32 (B*H, N). -> dq bf16."""
+    bh, n, d = q.shape
+    sm_scale = d**-0.5
+    scale_log2 = sm_scale * LOG2E
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    rows = torch.arange(n)[:, None]
+    lt, dlt = lse[..., None] * LOG2E, delta[..., None]
+    dq = torch.zeros(bh, n, d)
+    for k0 in range(0, n, FLASH_TILE):
+        kt, vt = kf[:, k0:k0 + FLASH_TILE], vf[:, k0:k0 + FLASH_TILE]
+        p = torch.exp2(qf @ kt.transpose(-1, -2) * scale_log2 - lt)
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+            p = p.masked_fill(cols > rows, 0.0)
+        ds = p * (dof @ vt.transpose(-1, -2) - dlt)
+        for part in _bf16_parts(ds, split):
+            dq = dq + part @ kt
+    return (dq * sm_scale).to(torch.bfloat16)
+
+
+def int8_as_bf16_magic(w8: torch.Tensor) -> torch.Tensor:
+    """K4's int8 -> bf16 conversion (csrc/int8_matmul.cu `int8_pair_to_bf16`)
+    as the same bit operations: byte ^ 0x80 under the fp32 exponent of 2^23
+    (0x4B0000xx), minus 2^23 + 128, then the fp32's upper 16 bits as a bf16
+    (the lower 16 are cut). Returns the bf16 values as fp32."""
+    u = (w8.to(torch.int32) & 0xFF) ^ 0x80
+    f = (u | 0x4B000000).view(torch.float32) - 8388736.0
+    return (f.view(torch.int32) & -65536).view(torch.float32)
+
+
+def int8w_mma_emulation(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor):
+    """K4's partition and summation order (csrc/int8_matmul.cu): K split
+    into `split_k`'s ranges, one per block of a cluster; within a range,
+    128-row tiles in order, each warp adding 32-row products of bf16(x) and
+    the converted weights into its fp32 sum; the blocks' partial sums then
+    added in rank order, and times the scale. -> (M, N) fp32."""
+    from jen1_tpu_torch.ops.int8_matmul import BLOCK_K, split_k
+
+    m, k = x.shape
+    n = w8.shape[1]
+    xb, wb = x.to(torch.bfloat16).float(), int8_as_bf16_magic(w8)
+    splits, chunk = split_k(m, k, n)
+    chunk *= BLOCK_K
+    out = torch.zeros(m, n)
+    for z in range(splits):
+        part = torch.zeros(m, n)
+        end = min(k, (z + 1) * chunk)
+        for k0 in range(z * chunk, end, 32):
+            part += xb[:, k0:min(end, k0 + 32)] @ wb[k0:min(end, k0 + 32)]
+        out = out + part
+    return out * scale.float()
