@@ -38,20 +38,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. small-train - one train step of a tiny trainer on the card against the
                    CPU (same weights, batch and draws), both causal variants:
                    per-task losses and every gradient leaf.
-  7. main        - Jen1(longform_config()).generate(): one warm-up request,
+  7. small-tasks - the tiny slice's music_inpaint and music_cont (VDM) and
+                   music_cont (GDM DDIM) of a seeded clip on the card against
+                   the CPU (same weights and draws), with their causal K1
+                   launches; the codec's chunked and segmented encodes and
+                   the RVQ codes on the card against the CPU.
+  8. main        - Jen1(longform_config()).generate(): one warm-up request,
                    then two timed requests (100 steps, 30 s, B=1); checks
                    shapes, finiteness and K1 launches, every one on the
                    tensor-core route; then one more request under
                    torch.profiler for the device's busy share and K1's
                    device time.
-  8. flagship    - Jen1(Config()) with the UNet's convs quantized at the
+  9. tasks       - the same Jen1: music_inpaint of a seeded 30 s clip over
+                   10-20 s and music_cont of its first 10 s to 30 s, 100 VDM
+                   steps each after a short warm-up: walls, phase walls
+                   (encode included), peak memory, K1 launches (200 each,
+                   all on the tensor-core route, the continuation's all
+                   causal); the 30 s encode chunked against whole-clip; the
+                   bf16 chunked decode against the fp32 one; one 10-step
+                   continuation under torch.profiler.
+ 10. flagship    - Jen1(Config()) with the UNet's convs quantized at the
                    default thresholds: the census, one UNet forward at
                    (2, 4500, 128) with K4, with the plain version and with
                    fp32 weights; one warm-up and two timed 100-step 30 s
                    DDIM requests (K4 launches, shapes, finiteness), one
                    request with fp32 weights, one 10-step request under
                    torch.profiler.
-  9. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
+ 11. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
                    steps, 5 timed steps, launches of K1/K2/K3 per step (all
                    on the tensor-core route), and one more step under
@@ -156,6 +169,15 @@ FLAGSHIP_STEPS = 100
 FLAGSHIP_SECONDS = 30
 FLAGSHIP_READ_CONVS = 52  # stride-1 convs that read their int8 kernel
 FLAGSHIP_QUANTIZED = 56  # conv kernels the JAX rule selects
+
+# the tasks slice: a seeded 30 s clip, inpainted over 10-20 s, and its
+# first 10 s continued to 30 s
+TASKS_SEED = 31
+TASKS_SCOPE = (10.0, 20.0)
+TASKS_CONT_SECONDS = 10
+# the tiny slice's codec: 1600 Hz, a 40-sample hop, a 2 x 16-entry RVQ
+TINY_CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2),
+                  n_q=2, bins=16)
 
 
 _START = time.perf_counter()
@@ -674,8 +696,7 @@ def tiny_pair(torch):
     cfg.model_config = dataclasses.replace(
         cfg.model_config, use_flash_attention=True, flash_min_seq_len=128, attention_heads=1,
     )
-    codec_cfg = EncodecConfig(sample_rate=1600, channels=2, dimension=8, n_filters=2,
-                              ratios=(5, 4, 2))
+    codec_cfg = EncodecConfig(**TINY_CODEC)
 
     def build(device):
         t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
@@ -786,6 +807,100 @@ def phase_small_gdm(torch) -> None:
         gdm.initial_noise, gdm.step_noise = draws
 
 
+def synthetic_clip(np, seed: int, seconds: float, sr: int):
+    """A seeded stereo clip (T, 2): two sines per channel plus noise."""
+    g = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    freqs = g.uniform(40.0, 0.4 * sr, (2, 2))
+    tones = sum(np.sin(2 * np.pi * freqs[:, i] * t[:, None] + g.uniform(0, 6.3))
+                for i in range(2))
+    return (0.3 * tones + 0.05 * g.standard_normal((len(t), 2))).astype(np.float32)
+
+
+def code_gap(torch, rvq, latent) -> float:
+    """The smallest distance from a frame's nearest codebook entry to the
+    second nearest, over every frame and stage of `latent`'s encode."""
+    residual, gap = latent.float(), float("inf")
+    for i in range(rvq.n_q):
+        d = rvq.distances(residual, i)
+        two = d.topk(2, dim=-1, largest=False).values
+        gap = min(gap, (two[..., 1] - two[..., 0]).min().item())
+        residual = residual - rvq.codebooks[i][d.argmin(-1)]
+    return gap
+
+
+def phase_small_tasks(torch) -> None:
+    """Inpainting and continuation at tiny widths, on the card against the
+    CPU: the tiny pair of phase small, a seeded 13 s clip (520 latent
+    frames), music_inpaint over 0.3-0.7 of it and music_cont of its first
+    half (VDM), music_cont with GDM DDIM; x_T (and DDIM's step noise) from
+    one CPU stream for both devices. Bar: rtol 2e-2 / atol 2e-3, as in
+    phase small. Every K1 launch of a continuation is causal, none of an
+    inpainting. The codec alone: the chunked (520 frames) and segmented
+    encodes at 1e-4 + 1e-4*|ref| elementwise, the RVQ codes of one latent
+    equal (its smallest best-to-second-best distance gap logged and held
+    above 1e-3)."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import gdm, vdm
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    cpu, card = tiny_pair(torch)
+    clip = synthetic_clip(np, 41, 13, 1600)
+    x = torch.from_numpy(clip[None])
+    for name in ("encode_latent_chunked", "encode_latent_segmented"):
+        ref = getattr(cpu.codec, name)(x)
+        out = getattr(card.codec, name)(x.to("cuda")).cpu()
+        err = (out - ref).abs().max().item()
+        ok = out.shape == ref.shape and bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+        log(f"[small-tasks] codec {name} card vs CPU: shape {tuple(out.shape)} max|diff| "
+            f"{err:.3e} (1e-4 + 1e-4*|ref|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the card's {name} disagrees with the CPU")
+    z = cpu.codec.encode_latent_chunked(x, quantize=False)
+    gap = code_gap(torch, cpu.codec.quantizer, z)
+    same = torch.equal(card.codec.quantizer.encode(z.to("cuda")).cpu(),
+                       cpu.codec.quantizer.encode(z))
+    log(f"[small-tasks] RVQ codes of a (1, 520, 8) latent card vs CPU: "
+        f"{'equal' if same else 'DIFFER'}; smallest distance gap {gap:.3e} (> 1e-3)")
+    if not same or gap <= 1e-3:
+        raise SystemExit("chip_smoke: the card's RVQ codes differ from the CPU's")
+
+    stream = torch.Generator().manual_seed(7)
+    x_t = torch.randn((1, 520, 8), generator=stream)
+    noises = [torch.randn((1, 520, 8), generator=stream) for _ in range(4)]
+    draws = (vdm.initial_noise, gdm.initial_noise, gdm.step_noise)
+    vdm.initial_noise = gdm.initial_noise = lambda shape, generator, device: x_t.to(device)
+    gdm.step_noise = lambda x, generator, index, uniform=False: noises[index].to(x.device)
+    cases = [
+        ("music_inpaint", "VDM", dict(task="music_inpaint", init_audio=clip,
+                                      inpainting_scope=(0.3 * 13, 0.7 * 13))),
+        ("music_cont", "VDM", dict(task="music_cont", init_audio=clip[: 13 * 800])),
+        ("music_cont", "GDM DDIM", dict(task="music_cont", init_audio=clip[: 13 * 800],
+                                        use_gdm=True)),
+    ]
+    try:
+        for task, sampler, kw in cases:
+            kw = dict(kw, seed=5, steps=4, seconds=13)
+            ref = cpu.generate("a beautiful song", **kw)
+            before = (fa.LAUNCHES, fa.LAUNCHES_CAUSAL)
+            out = card.generate("a beautiful song", **kw)
+            launched = fa.LAUNCHES - before[0]
+            causal = fa.LAUNCHES_CAUSAL - before[1]
+            err = float(np.abs(out - ref).max())
+            ok = (out.shape == ref.shape == (1, 2, 13 * 1600) and np.isfinite(out).all()
+                  and np.allclose(out, ref, rtol=2e-2, atol=2e-3) and launched > 0
+                  and causal == (launched if task == "music_cont" else 0))
+            log(f"[small-tasks] {task} ({sampler}) card vs CPU: max|diff|={err:.3e} "
+                f"(rtol 2e-2, atol 2e-3); K1 launches {launched}, causal {causal} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: the tiny {task} on the card disagrees with "
+                                 "the CPU")
+    finally:
+        vdm.initial_noise, gdm.initial_noise, gdm.step_noise = draws
+
+
 def launch_counts():
     from jen1_tpu_torch.ops import flash_attention as fa
 
@@ -868,8 +983,8 @@ def phase_small_train(torch) -> None:
             raise SystemExit("chip_smoke: the tiny train step on the card disagrees with the CPU")
 
 
-def phase_main(torch) -> int:
-    """Returns the K1 launches of the two counted requests."""
+def phase_main(torch) -> tuple:
+    """Returns the K1 launches of the two counted requests and the Jen1."""
     import numpy as np
 
     from jen1_tpu_torch.api.generation import Jen1
@@ -928,6 +1043,106 @@ def phase_main(torch) -> int:
                              lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
                                                    seconds=SLICE_SECONDS))
     log_kernel_time(by_name, "profile", ("flash_fwd_mma",), "K1", "the profiled request")
+    return total, jen1
+
+
+def sync_wall(torch, fn):
+    """(result, seconds) of fn() between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_tasks(torch, jen1) -> int:
+    """Inpainting and continuation at full width (the phase-main Jen1,
+    longform_config(), VDM, B=1): a seeded 30 s clip at 48 kHz, inpainted
+    over TASKS_SCOPE, and its first TASKS_CONT_SECONDS continued to 30 s.
+    Each request runs once short (warm-up) and once at SLICE_STEPS, counted:
+    K1 launches 2 per UNet forward, all on the tensor-core route, the
+    continuation's all causal and the inpainting's none, no backward
+    kernel. Then the 30 s encode chunked against whole-clip, the bf16
+    chunked decode against the fp32 one, and one PROFILE_STEPS
+    continuation under torch.profiler. Returns the counted K1 launches."""
+    import numpy as np
+
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    sr = jen1.sample_rate
+    clip = synthetic_clip(np, TASKS_SEED, SLICE_SECONDS, sr)
+    samples = SLICE_SECONDS * sr
+    requests = [
+        ("music_inpaint", dict(task="music_inpaint", init_audio=clip,
+                               inpainting_scope=TASKS_SCOPE), 0),
+        ("music_cont", dict(task="music_cont", init_audio=clip[: TASKS_CONT_SECONDS * sr]),
+         2 * SLICE_STEPS),
+    ]
+    expected = 2 * SLICE_STEPS
+    total = 0
+    torch.cuda.reset_peak_memory_stats()
+    for task, kw, want_causal in requests:
+        prompt, seed = SLICE_PROMPTS[0]
+        _, wall = sync_wall(torch, lambda: jen1.generate(
+            prompt, seed=seed, steps=PROFILE_STEPS, seconds=SLICE_SECONDS, **kw))
+        log(f"[tasks] {task} warm-up ({PROFILE_STEPS} steps) {wall:.3f} s")
+        fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_CAUSAL = 0
+        fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+        out, wall = sync_wall(torch, lambda: jen1.generate(
+            prompt, seed=seed, steps=SLICE_STEPS, seconds=SLICE_SECONDS, **kw))
+        counts = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_CAUSAL)
+        bwd = (fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+        total += counts[0]
+        phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
+        finite = bool(np.isfinite(out).all())
+        log(f"[tasks] {task} request seed={seed}, {SLICE_STEPS} steps: wall {wall:.4f} s; "
+            f"phases (s): {phases}; K1 launches {counts[0]}, tensor-core {counts[1]}, causal "
+            f"{counts[2]}; backward launches {bwd}; shape {out.shape}; finite {finite}; rms "
+            f"{float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
+        if out.shape != (1, 2, samples) or not finite:
+            raise SystemExit(f"chip_smoke: {task} gave shape {out.shape} or non-finite values")
+        if counts != (expected, expected, want_causal) or bwd != (0, 0):
+            raise SystemExit(f"chip_smoke: {task} K1 launches (all, tensor-core, causal) "
+                             f"{counts}, backward {bwd}; want ({expected}, {expected}, "
+                             f"{want_causal}), (0, 0)")
+    log(f"[tasks] peak device memory {torch.cuda.max_memory_allocated()} bytes")
+
+    audio = torch.from_numpy(clip[None]).to("cuda")
+    walls = {}
+    for name in ("encode_latent_chunked", "encode_latent"):
+        fn = getattr(jen1.codec, name)
+        fn(audio)  # warm-up
+        latent, walls[name] = sync_wall(torch, lambda: fn(audio))
+        log(f"[tasks] 30 s encode {name}: wall {walls[name]:.4f} s, latent "
+            f"{tuple(latent.shape)}, finite {bool(torch.isfinite(latent).all())}")
+        if not bool(torch.isfinite(latent).all()):
+            raise SystemExit(f"chip_smoke: {name} gave non-finite values")
+    log(f"[tasks] whole-clip / chunked encode wall: "
+        f"{walls['encode_latent'] / walls['encode_latent_chunked']:.3f}")
+    cc = jen1.codec.config
+    z = torch.randn((1, int(SLICE_SECONDS * cc.frame_rate), cc.dimension),
+                    generator=torch.Generator(device="cuda").manual_seed(TASKS_SEED),
+                    device="cuda")
+    outs = {}
+    for dtype in (None, torch.bfloat16):
+        jen1.codec.decode_latent_chunked(z, dtype=dtype)  # warm-up
+        outs[dtype], wall = sync_wall(torch, lambda: jen1.codec.decode_latent_chunked(
+            z, dtype=dtype))
+        log(f"[tasks] chunked decode of a {tuple(z.shape)} latent, "
+            f"{'bf16' if dtype else 'fp32'} decoder: wall {wall:.4f} s")
+    rel = ((outs[torch.bfloat16] - outs[None]).abs().max()
+           / outs[None].abs().max()).item()
+    log(f"[tasks] chunked_bf16 vs chunked: max|diff| / max|fp32| = {rel:.4e}")
+    if not bool(torch.isfinite(outs[torch.bfloat16]).all()):
+        raise SystemExit("chip_smoke: the bf16 chunked decode gave non-finite values")
+
+    prompt, seed = SLICE_PROMPTS[0]
+    cont = requests[1][1]
+    by_name = profile_window(torch, "tasks-profile", f"{PROFILE_STEPS}-step music_cont request",
+                             lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                                                   seconds=SLICE_SECONDS, **cont))
+    log_kernel_time(by_name, "tasks-profile", ("flash_fwd_mma",), "causal K1",
+                    "the profiled continuation")
     return total
 
 
@@ -1225,7 +1440,10 @@ def main() -> int:
     phase_small(torch)
     phase_small_gdm(torch)
     phase_small_train(torch)
-    k1_generation = phase_main(torch)
+    phase_small_tasks(torch)
+    k1_generation, jen1 = phase_main(torch)
+    k1_generation += phase_tasks(torch, jen1)
+    del jen1
     gc.collect()
     torch.cuda.empty_cache()
     k4 = phase_flagship(torch)

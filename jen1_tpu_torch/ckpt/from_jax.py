@@ -12,8 +12,9 @@ module, and the leaf is transposed into torch layout:
   LSTM  l{i}_w_ih / l{i}_w_hh (in, 4H) -> weight_ih_l{i} / weight_hh_l{i} (4H, in)
   norm scale                     -> weight
 
-Covers the UNet (`UNetCFG1d`), the T5 conditioner and the codec decoder.
-`load_flax_qweights` loads a JAX `qweights` collection (int8 inference,
+Covers the UNet (`UNetCFG1d`), the T5 conditioner and the codec
+(`load_encodec`: encoder, decoder and RVQ codebooks). `load_flax_qweights`
+loads a JAX `qweights` collection (int8 inference,
 jen1_tpu/ops/int8_matmul.py:142-186) into the UNet's stride-1 convs.
 Imports neither JAX nor `jen1_tpu`.
 """
@@ -84,6 +85,19 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
     missing = {n for n, _ in module.named_parameters()} - written
     if missing:
         raise ValueError(f"parameters not in the JAX tree: {sorted(missing)[:8]}")
+
+
+@torch.no_grad()
+def load_encodec(codec: nn.Module, params: Mapping) -> None:
+    """Load a JAX `EncodecModel.params` ({"encoder", "decoder", "codebooks"},
+    jen1_tpu/codec/model.py:107-111) into the port's `EncodecModel`."""
+    load_flax_params(codec.encoder, params["encoder"])
+    load_flax_params(codec.decoder, params["decoder"])
+    books = np.array(params["codebooks"], np.float32)
+    if tuple(codec.codebooks.shape) != books.shape:
+        raise ValueError(f"codebooks: JAX shape {books.shape} does not fit "
+                         f"torch {tuple(codec.codebooks.shape)}")
+    codec.codebooks.copy_(torch.from_numpy(books))
 
 
 def load_flax_qweights(module: nn.Module, tree: Mapping) -> int:

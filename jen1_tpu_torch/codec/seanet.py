@@ -1,12 +1,14 @@
-"""SEANet decoder, EnCodec's conv backbone (port of the decoder half of
+"""SEANet encoder and decoder, EnCodec's conv backbone (port of
 jen1_tpu/codec/seanet.py).
 
-The submodules work on (B, C, L) tensors; `SEANetDecoder` takes and returns
-channels-last (B, L, C) like the JAX package. Padding follows EnCodec:
-total pad (K-1)*dilation - (stride-1), split with the extra right padding
-that keeps the last partial frame, reflect mode with a zero extension of
-inputs shorter than the pad. Transposed convs apply GroupNorm(1) before the
-K - stride trim. The encoder half is not ported yet.
+The submodules work on (B, C, L) tensors; `SEANetEncoder` and
+`SEANetDecoder` take and return channels-last (B, L, C) like the JAX
+package. Padding follows EnCodec: total pad (K-1)*dilation - (stride-1),
+split with the extra right padding that keeps the last partial frame,
+reflect mode with a zero extension of inputs shorter than the pad.
+Transposed convs apply GroupNorm(1) before the K - stride trim. GroupNorm
+statistics and the LSTM run in fp32 whatever the activation dtype, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ class _TimeGroupNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.group_norm(x.float(), 1, self.weight, self.bias, 1e-5).to(x.dtype)
+        return F.group_norm(x.float(), 1, self.weight.float(), self.bias.float(),
+                            1e-5).to(x.dtype)
 
 
 def _norm(norm: str, channels: int):
@@ -131,7 +134,10 @@ class SConvTranspose1d(nn.Module):
 
 class SLSTM(nn.Module):
     """Multi-layer LSTM over time with a skip connection (EnCodec SLSTM), on
-    `torch.nn.LSTM` (gate order i, f, g, o; b_ih + b_hh)."""
+    `torch.nn.LSTM` (gate order i, f, g, o; b_ih + b_hh). It runs at its
+    weights' dtype and returns the input's: a bf16 codec keeps this module
+    in fp32 (bf16-rounded values), as JAX promotes bf16 weights to its fp32
+    LSTM math."""
 
     def __init__(self, channels: int, num_layers: int = 2, skip: bool = True):
         super().__init__()
@@ -144,7 +150,8 @@ class SLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         seq = x.permute(2, 0, 1)  # (L, B, C)
-        y, _ = self.lstm(seq)
+        y, _ = self.lstm(seq.to(self.lstm.weight_ih_l0.dtype))
+        y = y.to(seq.dtype)
         if self.skip:
             y = y + seq
         return y.permute(1, 2, 0)
@@ -166,6 +173,42 @@ class SEANetResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv2(F.elu(self.conv1(F.elu(x))))
         return self.shortcut(x) + h
+
+
+class SEANetEncoder(nn.Module):
+    """audio (B, T, channels) -> latent (B, ceil(T / prod(ratios)), dimension)
+    (jen1_tpu/codec/seanet.py:293-339); the stages downsample by the ratios
+    in reverse order."""
+
+    def __init__(self, channels: int = 2, dimension: int = 128, n_filters: int = 32,
+                 n_residual_layers: int = 1, ratios: Sequence[int] = (8, 5, 4, 2),
+                 dilation_base: int = 2, causal: bool = False,
+                 norm: str = "time_group_norm", pad_mode: str = "reflect", lstm: int = 2):
+        super().__init__()
+        self.ratios = tuple(ratios)
+        self.n_residual_layers = n_residual_layers
+        kw = dict(causal=causal, norm=norm, pad_mode=pad_mode)
+        mult = 1
+        self.conv_in = SConv1d(channels, n_filters, 7, **kw)
+        for si, ratio in enumerate(reversed(self.ratios)):
+            for j in range(n_residual_layers):
+                self.add_module(f"stage{si}_res{j}", SEANetResnetBlock(
+                    mult * n_filters, dilation=dilation_base**j, **kw))
+            self.add_module(f"stage{si}_down", SConv1d(
+                mult * n_filters, mult * n_filters * 2, ratio * 2, stride=ratio, **kw))
+            mult *= 2
+        self.lstm = SLSTM(mult * n_filters, num_layers=lstm) if lstm else None
+        self.conv_out = SConv1d(mult * n_filters, dimension, 7, **kw)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(audio.transpose(1, 2))
+        for si in range(len(self.ratios)):
+            for j in range(self.n_residual_layers):
+                x = getattr(self, f"stage{si}_res{j}")(x)
+            x = getattr(self, f"stage{si}_down")(F.elu(x))
+        if self.lstm is not None:
+            x = self.lstm(x)
+        return self.conv_out(F.elu(x)).transpose(1, 2)
 
 
 class SEANetDecoder(nn.Module):

@@ -95,7 +95,9 @@ def create_multi_conditioner(config, *, device="cuda",
     conditioners = {}
     for ctype in config.conditioning_type:
         if ctype != "t5":
-            raise NotImplementedError(f"conditioner type {ctype!r} is not ported yet")
+            raise NotImplementedError(
+                f"conditioner type {ctype!r} is not ported yet "
+                "(ROADMAP Queue 1, 'Remaining model, conditioning and eval features')")
         c = config.t5_config
         conditioners[c.id] = T5Conditioner(
             output_dim=config.cond_dim,

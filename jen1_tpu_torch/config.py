@@ -1,10 +1,15 @@
 """Configuration dataclasses (port of jen1_tpu/config.py).
 
-A copy of the fields the generation and training slices read, with the same
-names and defaults as the JAX package, the JSON round trip of
-`jen1_tpu/config.py:318-381` (a JSON written by the JAX `Config.to_json()`
-loads; keys the port does not know are ignored, as there) and the
-`longform_config()` and `tiny_test_config()` presets.
+A copy of every field of the JAX `Config` tree, with the same names and
+defaults, the JSON round trip of `jen1_tpu/config.py:318-381` (a JSON written
+by the JAX `Config.to_json()` loads; keys that neither package knows are
+ignored, as there) and the `longform_config()` and `tiny_test_config()`
+presets. Fields whose modules the port does not have yet keep their JAX
+defaults; any other value raises NotImplementedError naming the ROADMAP
+Queue 1 item that ports them (`UNPORTED`). `compile_effort`, `use_fp16`,
+`is_finetuning` and `mesh_axis_names` are carried for the round trip and
+change nothing here (XLA's effort knob; read by no JAX module; the mesh is
+refused by the trainer).
 """
 
 from __future__ import annotations
@@ -91,6 +96,9 @@ class ModelConfig:
     kernel_multiplier_downsample: int = 2
     use_nearest_upsample: bool = False
     use_skip_scale: bool = True
+    use_snake: bool = False
+    use_stft: bool = False
+    use_stft_context: bool = False
     use_xattn_time: bool = True
     out_channels: int = 128
     context_features: Optional[int] = None
@@ -101,11 +109,17 @@ class ModelConfig:
     attention_heads: int = 8
     attention_features: Optional[int] = None
     attention_multiplier: int = 1
+    stft_num_fft: int = 1023
+    stft_hop_length: int = 256
     n_tracks: int = 1  # Composer channel groups; 1 = single-track JEN-1
     dtype: str = "bfloat16"  # compute dtype; params are always fp32
     use_flash_attention: bool = True
     flash_min_seq_len: int = 1024
     tie_transformer_projections: bool = False
+    remat: bool = False
+
+    def __post_init__(self):
+        _refuse_unported(self, "model_config")
 
 
 @dataclass
@@ -133,6 +147,24 @@ class T5Config:
     t5_model_name: str = "google/flan-t5-large"
     max_length: int = 128
     project_out: bool = True
+    weights_path: Optional[str] = None
+
+    def __post_init__(self):
+        _refuse_unported(self, "conditioner_config.t5_config")
+
+
+@dataclass
+class IntConfig:
+    id: str = "seconds_start"
+    min_val: int = 0
+    max_val: int = 512
+
+
+@dataclass
+class NumberConfig:
+    id: str = "seconds_total"
+    min_val: float = 0
+    max_val: float = 512
 
 
 @dataclass
@@ -141,6 +173,11 @@ class ConditionerConfig:
     default_keys: Dict[str, str] = field(default_factory=dict)
     conditioning_type: Tuple[str, ...] = ("t5",)
     t5_config: T5Config = field(default_factory=T5Config)
+    int_config: IntConfig = field(default_factory=IntConfig)
+    number_config: NumberConfig = field(default_factory=NumberConfig)
+
+    def __post_init__(self):
+        _refuse_unported(self, "conditioner_config")
 
 
 @dataclass
@@ -152,25 +189,40 @@ class ParallelConfig:
     tp: int = 1
     sp: int = 1
     fsdp: bool = False
+    mesh_axis_names: Tuple[str, ...] = ("dp", "sp", "tp")
 
 
 @dataclass
 class LoraConfig:
     """LoRA finetuning (jen1_tpu/config.py:255-270); rank 0 disables it.
-    Not ported yet: the trainer refuses rank > 0, so the adapter settings
-    are not kept."""
+    Not ported yet: the trainer refuses rank > 0, and the adapter settings
+    only their defaults."""
 
     rank: int = 0
+    alpha: float = 16.0
+    targets: Optional[str] = None
+    base_ckpt: Optional[str] = None
+
+    def __post_init__(self):
+        _refuse_unported(self, "lora_config")
 
 
 @dataclass
 class Config:
-    """Root config: the fields of jen1_tpu.config.Config that the port reads."""
+    """Root config: every field of jen1_tpu.config.Config."""
 
     save_dir: str = ""
     log_dir: str = ""
+    codec_weights_path: Optional[str] = None
+    # the reference's latent pipeline: per-1 s-segment volume normalisation
+    # and RVQ codes concatenated across the 1 %-overlapping segments
+    # (`EncodecModel.encode_latent_segmented`); generate() encodes with it
+    codec_segmented_latents: bool = False
+    compile_effort: Optional[float] = None
+    use_fp16: bool = True
     use_ema: bool = False
     ema_decay: float = 0.999
+    is_finetuning: bool = False
     seed: int = 4996
     tasks: Tuple[str, ...] = ("text_guided", "music_inpaint", "music_cont")
     num_epoch: int = 100
@@ -184,6 +236,9 @@ class Config:
     conditioner_config: ConditionerConfig = field(default_factory=ConditionerConfig)
     parallel_config: ParallelConfig = field(default_factory=ParallelConfig)
     lora_config: LoraConfig = field(default_factory=LoraConfig)
+
+    def __post_init__(self):
+        _refuse_unported(self, "")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -216,9 +271,51 @@ class Config:
         return Config.from_dict(d)
 
 
+# ROADMAP Queue 1 items, by title, that port what the port refuses today
+ROADMAP_WEIGHTS = "ROADMAP Queue 1, 'Checkpoints and local weights'"
+ROADMAP_TRAINING = "ROADMAP Queue 1, 'Rest of training'"
+ROADMAP_MESH = "ROADMAP Queue 1, 'parallel/mesh.py on torch.distributed'"
+_MODEL_FEATURES = "ROADMAP Queue 1, 'Remaining model, conditioning and eval features'"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to jen1_tpu_torch yet ({item})")
+
+
+# Fields whose modules are not ported yet, by dataclass, with the ROADMAP
+# Queue 1 item that ports them; only the JAX default is accepted.
+UNPORTED = {
+    "ModelConfig": {
+        "use_snake": _MODEL_FEATURES, "use_stft": _MODEL_FEATURES,
+        "use_stft_context": _MODEL_FEATURES, "stft_num_fft": _MODEL_FEATURES,
+        "stft_hop_length": _MODEL_FEATURES,
+        "remat": "ROADMAP Queue 1, 'UNet encoder cache and encoder_reuse'",
+    },
+    "T5Config": {"weights_path": ROADMAP_WEIGHTS},
+    "ConditionerConfig": {"int_config": _MODEL_FEATURES, "number_config": _MODEL_FEATURES},
+    "LoraConfig": {name: ROADMAP_TRAINING for name in ("alpha", "targets", "base_ckpt")},
+    "Config": {"codec_weights_path": ROADMAP_WEIGHTS},
+}
+
+
+def _refuse_unported(obj, path: str) -> None:
+    """NotImplementedError for an unported field that is not at its default."""
+    defaults = {f.name: f for f in dataclasses.fields(obj)}
+    for name, item in UNPORTED[type(obj).__name__].items():
+        f = defaults[name]
+        default = f.default_factory() if f.default_factory is not dataclasses.MISSING \
+            else f.default
+        if getattr(obj, name) != default:
+            where = f"{path}.{name}" if path else name
+            raise NotImplementedError(
+                f"{where}={getattr(obj, name)!r} is not ported to jen1_tpu_torch yet "
+                f"(only the default {default!r} is; {item})")
+
+
 def _dataclass_from_dict(cls, d):
     """Build `cls` from a dict: nested dataclasses recurse, JSON lists become
-    tuples where the field is a tuple, unknown keys are ignored."""
+    tuples where the field is a tuple, keys that are no field are ignored
+    (as the JAX package ignores them)."""
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:

@@ -1,6 +1,6 @@
 """Precomputed-latent dataset, split and batching loader (port of
 jen1_tpu/data/dataset.py:136-240). numpy only; `MusicDataset` and audio I/O
-wait for the codec encoder (ROADMAP Queue 1 item 9).
+wait for ROADMAP Queue 1, 'Rest of training'.
 
   LatentDataset   - <dir>/<name>.npy latents (frames, C) + optional
                     <name>.json metadata ({"prompt": ""} when absent).

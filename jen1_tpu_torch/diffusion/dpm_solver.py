@@ -15,7 +15,7 @@ The scalars are fp32, computed on the host as the JAX scan computes them.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,17 +33,19 @@ def dpm_solver_pp_2m(
     *,
     device,
     causal: bool = False,
+    init_data: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sample with DPM-Solver++(2M); `gdm` (a GaussianDiffusion) gives the
     schedule, the objective and the CFG call (x0 clipped to [-1, 1]).
-    gdm.sampling_timesteps model calls."""
+    gdm.sampling_timesteps model calls, from x_T + init_data when given
+    (dpm_solver.py:66-69)."""
     batch = shape[0]
     acp = gdm.alphas_cumprod_host
     alpha = np.sqrt(acp)
     sigma = np.sqrt(np.float32(1.0) - acp)
     lam = np.log(alpha) - np.log(sigma)
 
-    x = _gdm.initial_noise(shape, generator, device)
+    x = _gdm.with_init_data(_gdm.initial_noise(shape, generator, device), init_data)
     m_prev, lam_prev = None, np.float32(0.0)
     for i, (t_s, t_t) in enumerate(_gdm.time_pairs(gdm.num_timesteps, gdm.sampling_timesteps)):
         time_cond = torch.full((batch,), t_s, dtype=torch.long, device=device)

@@ -40,6 +40,12 @@ def initial_noise(shape: Sequence[int], generator: torch.Generator, device) -> t
     return torch.randn(tuple(shape), generator=generator, device=device)
 
 
+def with_init_data(x_t: torch.Tensor, init_data: Optional[torch.Tensor]) -> torch.Tensor:
+    """x_T plus the encoded init audio in fp32, the JAX samplers' start
+    (gdm.py:279-283); x_T alone without it."""
+    return x_t if init_data is None else x_t + init_data.float()
+
+
 def step_noise(x: torch.Tensor, generator: torch.Generator, index: int,
                uniform: bool = False) -> torch.Tensor:
     """The noise of sampler step `index` (0 for the first step taken), of
@@ -268,6 +274,7 @@ class GaussianDiffusion:
         *,
         device,
         causal: bool = False,
+        init_data: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """DDIM (gdm.py:285-438) over `sampling_timesteps` steps, x_start
         clipped to [-1, 1]. The step's scalars are fp32, computed on the
@@ -277,7 +284,7 @@ class GaussianDiffusion:
         acp = self.alphas_cumprod_host
         eta = np.float32(self.ddim_sampling_eta)
         one = np.float32(1.0)
-        audio = initial_noise(shape, generator, device)
+        audio = with_init_data(initial_noise(shape, generator, device), init_data)
         for i, (time, time_next) in enumerate(
                 time_pairs(self.num_timesteps, self.sampling_timesteps)):
             time_cond = torch.full((batch,), time, dtype=torch.long, device=device)
@@ -306,12 +313,13 @@ class GaussianDiffusion:
         *,
         device,
         causal: bool = False,
+        init_data: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Ancestral DDPM over all `num_timesteps` (gdm.py:440-481), x_start
         clipped to [-1, 1]. Step i runs t = T - 1 - i; the JAX stream folds
         t, not i, into its key."""
         batch = shape[0]
-        audio = initial_noise(shape, generator, device)
+        audio = with_init_data(initial_noise(shape, generator, device), init_data)
         for i, t in enumerate(range(self.num_timesteps - 1, -1, -1)):
             time_cond = torch.full((batch,), t, dtype=torch.long, device=device)
             _, x_start = self.model_predictions(
@@ -334,17 +342,19 @@ class GaussianDiffusion:
         causal: bool = False,
         mode: str = "scan",
         encoder_reuse: int = 1,
+        init_data: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """DDIM iff sampling_timesteps < num_timesteps, else DDPM
         (gdm.py:581-666). mode 'scan' and 'stepwise' are one Python loop
         here (the JAX package's two are numerically identical, :498-499);
-        'dpm++' runs DPM-Solver++(2M) (`diffusion/dpm_solver.py`)."""
+        'dpm++' runs DPM-Solver++(2M) (`diffusion/dpm_solver.py`). Every
+        sampler starts from x_T + init_data when it is given."""
         if mode not in ("scan", "stepwise", "dpm++"):
             raise ValueError(f"mode must be 'scan', 'stepwise' or 'dpm++', got {mode!r}")
         if encoder_reuse > 1:
             raise NotImplementedError(
                 "encoder_reuse > 1 needs the UNet encoder cache, which is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+                "(ROADMAP Queue 1, 'UNet encoder cache and encoder_reuse')")
         if mode == "dpm++":
             from jen1_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_2m
 
@@ -353,7 +363,8 @@ class GaussianDiffusion:
             raise ValueError("mode='stepwise' implements DDIM")
         else:
             sampler = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
-        return sampler(model_fn, shape, conditioning, generator, device=device, causal=causal)
+        return sampler(model_fn, shape, conditioning, generator, device=device, causal=causal,
+                       init_data=init_data)
 
 
 def create_gaussian_diffusion(

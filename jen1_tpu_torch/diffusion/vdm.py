@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from jen1_tpu_torch.diffusion.gdm import noise_like
+from jen1_tpu_torch.diffusion.gdm import noise_like, with_init_data
 
 ModelFn = Callable[..., torch.Tensor]
 Conditioning = Dict[str, Any]
@@ -128,10 +128,13 @@ class VDM:
         device,
         step: int = 100,
         causal: bool = False,
+        init_data: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Deterministic v-space sampler from x_T = `initial_noise(...)`."""
+        """Deterministic v-space sampler from x_T = `initial_noise(...)`, plus
+        `init_data` (the encoded init audio) in fp32 when given
+        (jen1_tpu/diffusion/vdm.py:157-160)."""
         batch = shape[0]
-        audio = initial_noise(shape, generator, device)
+        audio = with_init_data(initial_noise(shape, generator, device), init_data)
         steps = np.linspace(1.0, 0.0, step + 1, dtype=np.float32)
         for t, t_next in zip(steps[:-1], steps[1:]):
             time_cond = torch.full((batch,), float(t), dtype=torch.float32, device=device)

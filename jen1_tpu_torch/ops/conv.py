@@ -5,11 +5,13 @@ Weights are stored in torch layout, fp32, and cast to the activation dtype
 at use: Conv1d (out, in, K), ConvTranspose1d (in, out, K). The functions
 transpose to (B, C, L) for `F.conv1d` and back. A stride-1 `OmniConv1d`
 given an int8 kernel (`ops/int8_matmul.py::attach_qweights`) runs
-`conv1d_int8w` instead.
+`conv1d_int8w` instead. `fp32_precision` is the port's counterpart of the
+JAX package's `Precision.HIGHEST` for fp32 products.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -18,6 +20,27 @@ from torch import nn
 
 from jen1_tpu_torch.ops.initializers import torch_uniform_
 from jen1_tpu_torch.ops.int8_matmul import conv1d_int8w
+
+
+@contextlib.contextmanager
+def fp32_precision():
+    """fp32 convs, LSTMs and matmuls in full fp32, never TF32, as the JAX
+    package asks of XLA with Precision.HIGHEST (jen1_tpu/ops/conv.py:27-31),
+    whatever the caller set; bf16 products are unaffected. cuDNN's
+    `allow_tf32` defaults to True, so every fp32 path runs under this."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+            enabled=torch.backends.cudnn.enabled,
+            benchmark=torch.backends.cudnn.benchmark,
+            deterministic=torch.backends.cudnn.deterministic,
+            allow_tf32=False,
+        ):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 def _cast(w: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:

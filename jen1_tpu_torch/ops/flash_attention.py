@@ -5,7 +5,8 @@ Three hand-written CUDA kernels, each with a wrapper that counts its
 launches:
   * `flash_attention_fwd` (`csrc/flash_attention_fwd.cu`, K1) replaces the
     TPU kernel `_fwd_kernel` of `_flash_forward_lse`
-    (jen1_tpu/ops/flash_attention.py:45-167); count `LAUNCHES`.
+    (jen1_tpu/ops/flash_attention.py:45-167); count `LAUNCHES`, and its
+    causal launches again in `LAUNCHES_CAUSAL`.
   * `flash_attention_bwd_dq` (`csrc/flash_attention_bwd.cu`, K2) replaces
     `_bwd_dq_kernel` (:173-219, :309-324); count `LAUNCHES_DQ`.
   * `flash_attention_bwd_dkv` (same source, K3) replaces `_bwd_dkv_kernel`
@@ -34,9 +35,11 @@ import torch
 import torch.nn.functional as F
 
 # Launches of each CUDA kernel, incremented by its wrapper only; the _MMA
-# counts are the launches of K1, K2 and K3 that took the tensor-core route.
+# counts are the launches of K1, K2 and K3 that took the tensor-core route,
+# LAUNCHES_CAUSAL the launches of K1 with the causal mask.
 LAUNCHES = 0
 LAUNCHES_MMA = 0
+LAUNCHES_CAUSAL = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DQ_MMA = 0
 LAUNCHES_DKV = 0
@@ -180,7 +183,7 @@ def flash_attention_fwd(
     bfloat16 (then 16-byte aligned), D <= 256 -> (o, lse (B*H, N) fp32).
 
     Launches on the current stream without synchronising."""
-    global LAUNCHES, LAUNCHES_MMA
+    global LAUNCHES, LAUNCHES_MMA, LAUNCHES_CAUSAL
     fn = "flash_attention_fwd"
     _check(fn, q, (("q", q), ("k", k), ("v", v)))
     b, h, n, d = q.shape
@@ -194,6 +197,7 @@ def flash_attention_fwd(
     _launch("jen1_flash_attention_fwd", q, (qp, kp, vp, o, lse), dp, causal, d**-0.5)
     LAUNCHES += 1
     LAUNCHES_MMA += mma
+    LAUNCHES_CAUSAL += bool(causal)
     return _unpad(o, d), lse
 
 

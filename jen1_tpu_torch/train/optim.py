@@ -79,7 +79,7 @@ class AdamWChain:
                  max_consecutive_errors: int = 100):
         if opt_config.flatten_optimizer:
             raise NotImplementedError(
-                "flatten_optimizer is not ported yet (ROADMAP Queue 1 item 9)")
+                "flatten_optimizer is not ported yet (ROADMAP Queue 1, 'Rest of training')")
         self.oc = opt_config
         self.k = int(grad_accum_every)
         self.skip_nonfinite = opt_config.skip_nonfinite_updates

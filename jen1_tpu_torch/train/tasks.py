@@ -97,7 +97,8 @@ def apply_mask(latents: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor,
 def _check_task(task: str) -> None:
     if task == "track_gen":
         raise NotImplementedError(
-            "the track_gen task needs Composer, which is not ported yet (ROADMAP Queue 1 item 8)"
+            "the track_gen task needs Composer, which is not ported yet "
+            "(ROADMAP Queue 1, 'Rest of training')"
         )
     if task not in TASKS:
         raise ValueError(f"unknown task: {task}")

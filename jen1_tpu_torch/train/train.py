@@ -13,7 +13,7 @@ Metrics go to <log_dir>/metrics.jsonl.
 Options of the JAX CLI whose modules are not ported yet fail loudly, naming
 the ROADMAP item: a mesh (dp/tp/sp/fsdp), LoRA, multi-host `--distributed`,
 `--profile`, checkpointing (a non-empty save_dir) and wav input
-(dataset_dir, which needs the codec encoder).
+(dataset_dir, which needs MusicDataset and audio I/O).
 """
 
 from __future__ import annotations
@@ -27,7 +27,9 @@ import torch
 
 from jen1_tpu_torch.api.generation import resolve_device
 from jen1_tpu_torch.conditioning.conditioners import create_multi_conditioner
-from jen1_tpu_torch.config import Config
+from jen1_tpu_torch.config import (
+    ROADMAP_MESH, ROADMAP_TRAINING, ROADMAP_WEIGHTS, Config, not_ported,
+)
 from jen1_tpu_torch.data.dataset import LatentDataset, make_dataloader, train_test_split
 from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
@@ -38,19 +40,15 @@ from jen1_tpu_torch.train.trainer import UnifiedMultiTaskTrainer, step_generator
 from jen1_tpu_torch.utils.logger import MetricLogger, get_logger
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to jen1_tpu_torch yet ({item})")
-
-
 def check_ported(config: Config) -> None:
     """Refuse the settings whose modules the port does not have yet."""
     pc = config.parallel_config
     if pc.dp not in (-1, 1) or pc.tp != 1 or pc.sp != 1 or pc.fsdp:
-        raise _not_ported("a device mesh (dp/tp/sp/fsdp)", "ROADMAP Queue 1 item 10")
+        raise not_ported("a device mesh (dp/tp/sp/fsdp)", ROADMAP_MESH)
     if config.lora_config.rank > 0:
-        raise _not_ported("LoRA training", "ROADMAP Queue 1 item 9")
+        raise not_ported("LoRA training", ROADMAP_TRAINING)
     if config.save_dir:
-        raise _not_ported("checkpointing (save_dir)", "ROADMAP Queue 1 item 9")
+        raise not_ported("checkpointing (save_dir)", ROADMAP_WEIGHTS)
 
 
 def build_trainer(config: Config, conditioner=None, *, device="cuda") -> UnifiedMultiTaskTrainer:
@@ -83,8 +81,8 @@ def run(config: Config, max_steps: Optional[int] = None, *, device="cuda"):
     check_ported(config)
     dc = config.dataset_config
     if not dc.latents_dir:
-        raise _not_ported("training from wav files (dataset_dir; needs the codec encoder)",
-                          "ROADMAP Queue 1 item 5")
+        raise not_ported("training from wav files (dataset_dir; needs MusicDataset and "
+                          "audio I/O)", ROADMAP_TRAINING)
     logger = get_logger(config.log_dir)
     metrics_logger = MetricLogger(config.log_dir)
     dataset = LatentDataset(dc.latents_dir)
@@ -150,11 +148,11 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     if args.distributed:
-        raise _not_ported("multi-host training (--distributed)", "ROADMAP Queue 1 item 10")
+        raise not_ported("multi-host training (--distributed)", ROADMAP_MESH)
     if args.profile:
-        raise _not_ported("--profile", "ROADMAP Queue 1 item 11")
+        raise not_ported("--profile", ROADMAP_TRAINING)
     if any(v is not None for v in (args.lora_rank, args.lora_alpha, args.lora_base_ckpt)):
-        raise _not_ported("LoRA training", "ROADMAP Queue 1 item 9")
+        raise not_ported("LoRA training", ROADMAP_TRAINING)
     config = Config.from_json(args.config) if args.config else Config()
     dc, pc = config.dataset_config, config.parallel_config
     if args.latents_dir:

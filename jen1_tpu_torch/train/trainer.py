@@ -36,6 +36,7 @@ import torch
 
 from jen1_tpu_torch.conditioning.conditioners import assemble_conditioning
 from jen1_tpu_torch.models.composer import composer_conditioning
+from jen1_tpu_torch.ops.conv import fp32_precision
 from jen1_tpu_torch.ops.embeddings import rand_bool
 from jen1_tpu_torch.train.fused_optim import fused_adamw_apply, fused_adamw_init
 from jen1_tpu_torch.train.optim import global_norm, make_lr_schedule, make_optimizer
@@ -263,8 +264,9 @@ class UnifiedMultiTaskTrainer:
         draws = self.draw_randoms(generator, flags, batch["latents"].shape)
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        total, per_task = self._multi_task_loss(batch, draws, flags)
-        total.backward()
+        with fp32_precision():
+            total, per_task = self._multi_task_loss(batch, draws, flags)
+            total.backward()
         gnorm = self._apply_optimizer(state)
         if state.ema_params is not None:
             d = self.ema_decay
@@ -287,7 +289,8 @@ class UnifiedMultiTaskTrainer:
         flags = tuple(task_is_causal(t, text_guided_causal) for t in self.tasks)
         draws = self.draw_randoms(generator, flags, batch["latents"].shape)
         self.model.eval()
-        total, per_task = self._multi_task_loss(batch, draws, flags)
+        with fp32_precision():
+            total, per_task = self._multi_task_loss(batch, draws, flags)
         return {"loss/val": total, **{f"loss_{k}/val": v for k, v in per_task.items()}}
 
     def prepare_batch(self, latents, metadata) -> Dict[str, torch.Tensor]:

@@ -281,3 +281,159 @@ def test_quantized_conv_on_cuda_matches_cpu(cuda_device, causal):
         torch.cuda.synchronize()
     assert im.LAUNCHES == before + 1 and conv.kernel8.is_cuda
     assert (out.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# -------------------------------------------- training and the tasks slice
+
+TINY_CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2),
+                  n_q=2, bins=16)
+GRAD_LEAF_BAR, GRAD_LEAF_FLOOR = 5e-3, 1e-5
+
+
+class Coin:
+    """The trainer's host stream, fixed to one value."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def integers(self, lo, hi):
+        return self.value
+
+
+def test_fp32_train_step_with_tf32_defaults_matches_cpu(cuda_device):
+    """An fp32 tiny_test_config() train step on the card with cuDNN's TF32
+    flag at its default (True) and cuBLAS's turned on too (the override of
+    the `cuda_device` fixture undone for this test): the trainer runs its
+    forward and backward without TF32, so losses and gradients meet the
+    train bars against the CPU (losses rtol 2e-3; every gradient leaf
+    within 5e-3 * max|g_ref| of the leaf, floored at 1e-5 of the largest
+    leaf's)."""
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.config import tiny_test_config
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import StepDraws, step_generator
+
+    cfg = tiny_test_config()
+    t5c = cfg.conditioner_config.t5_config
+    t5c.t5_model_name, t5c.max_length = "tiny-test", cfg.model_config.context_embedding_max_length
+    mc = cfg.model_config
+    g = np.random.default_rng(0)
+    m = mc.context_embedding_max_length
+    host = {"latents": g.standard_normal((3, 96, mc.in_channels)).astype(np.float32),
+            "text_emb": g.standard_normal((3, m, mc.context_embedding_features)
+                                          ).astype(np.float32),
+            "text_mask": np.ones((3, m), bool)}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
+        card.model.load_state_dict(cpu.model.state_dict())
+        draws = cpu.draw_randoms(step_generator("cpu", 0, 0), cpu._causal_flags(Coin(0)),
+                                 host["latents"].shape)
+        moved = StepDraws(*[{k: v.to("cuda") if torch.is_tensor(v) else v
+                             for k, v in getattr(draws, f.name).items()}
+                            for f in dataclasses.fields(StepDraws)])
+        cpu.draw_randoms = lambda *a: draws
+        card.draw_randoms = lambda *a: moved
+        metrics = {}
+        for name, tr in (("cpu", cpu), ("card", card)):
+            batch = {k: torch.as_tensor(v, device=tr.device) for k, v in host.items()}
+            _, mt = tr.train_step(tr.init_state(), batch, None, Coin(0))
+            metrics[name] = {k: float(v) for k, v in mt.items()}
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (
+            True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for k, ref in metrics["cpu"].items():
+        if k.startswith("loss"):
+            assert abs(metrics["card"][k] - ref) <= 2e-3 * abs(ref), k
+    refs = [p.grad for p in cpu.model.parameters()]
+    floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
+    for (name, p), ref in zip(card.model.named_parameters(), refs):
+        bar = GRAD_LEAF_BAR * max(ref.abs().max().item(), floor)
+        assert (p.grad.cpu() - ref).abs().max().item() <= bar, name
+
+
+def tiny_codecs():
+    """The tiny codec on the CPU and on the card with the same weights."""
+    from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
+
+    cpu = EncodecModel(EncodecConfig(**TINY_CODEC), device="cpu").eval()
+    card = EncodecModel(EncodecConfig(**TINY_CODEC), device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def test_codec_encode_on_cuda_matches_cpu(cuda_device):
+    """The SEANet encoder (whole clip), the chunked encode (520 frames, four
+    chunks) and the segmented encode on the card against the CPU at 1e-4,
+    and the RVQ codes of one latent equal on both (its nearest entries at
+    least 1e-3 closer than the second nearest)."""
+    import numpy as np
+
+    cpu, card = tiny_codecs()
+    g = np.random.default_rng(4)
+    t = np.arange(520 * 40 + 13) / 1600
+    audio = (0.3 * np.sin(2 * np.pi * np.array([220.0, 330.0]) * t[:, None])
+             + 0.05 * g.standard_normal((len(t), 2))).astype(np.float32)[None]
+    x = torch.from_numpy(audio)
+    for name, kw in (("encode_latent", dict(quantize=False)), ("encode_latent", {}),
+                     ("encode_latent_chunked", {}), ("encode_latent_segmented", {})):
+        ref = getattr(cpu, name)(x, **kw)
+        out = getattr(card, name)(x.to(cuda_device), **kw).cpu()
+        assert out.shape == ref.shape, name
+        assert ((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all(), (name, kw)
+    z = cpu.encode_latent_chunked(x, quantize=False)
+    residual = z
+    for i in range(cpu.quantizer.n_q):
+        d = cpu.quantizer.distances(residual, i)
+        two = d.topk(2, dim=-1, largest=False).values
+        assert (two[..., 1] - two[..., 0]).min().item() > 1e-3
+        residual = residual - cpu.quantizer.codebooks[i][d.argmin(-1)]
+    codes = cpu.quantizer.encode(z)
+    assert torch.equal(card.quantizer.encode(z.to(cuda_device)).cpu(), codes)
+
+
+def test_generate_music_cont_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """A tiny Jen1 (tiny_test_config widths, one head, flash_min_seq_len 128)
+    continues the first 6 s of a 13 s clip on the card and on the CPU with
+    the same weights and x_T: rtol 2e-2 / atol 2e-3, and every K1 launch of
+    the card's level-1 attention is causal (fp32, so the scalar route)."""
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
+    from jen1_tpu_torch.config import tiny_test_config
+    from jen1_tpu_torch.diffusion import vdm
+
+    cfg = tiny_test_config()
+    cfg.model_config = dataclasses.replace(
+        cfg.model_config, use_flash_attention=True, flash_min_seq_len=128, attention_heads=1)
+    codecs = tiny_codecs()
+    jen1 = {}
+    for dev, codec in zip(("cpu", "cuda"), codecs):
+        t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
+                           device=dev)
+        jen1[dev] = Jen1(sample_rate=1600, config=cfg, codec=codec,
+                         conditioner=MultiConditioner({"prompt": t5}), device=dev)
+    jen1["cuda"].model.load_state_dict(jen1["cpu"].model.state_dict())
+    jen1["cuda"].conditioner.conditioners["prompt"].load_state_dict(
+        jen1["cpu"].conditioner.conditioners["prompt"].state_dict())
+    x_t = torch.randn((1, 520, 8), generator=torch.Generator().manual_seed(7))
+    monkeypatch.setattr(vdm, "initial_noise", lambda shape, generator, device: x_t.to(device))
+    g = np.random.default_rng(5)
+    clip = (0.3 * np.sin(np.arange(6 * 1600)[:, None] * np.array([0.7, 1.1]))
+            + 0.05 * g.standard_normal((6 * 1600, 2))).astype(np.float32)
+    kw = dict(seed=5, steps=4, seconds=13, task="music_cont", init_audio=clip)
+    ref = jen1["cpu"].generate("a beautiful song", **kw)
+    before = (fa.LAUNCHES, fa.LAUNCHES_CAUSAL)
+    out = jen1["cuda"].generate("a beautiful song", **kw)
+    launched = (fa.LAUNCHES - before[0], fa.LAUNCHES_CAUSAL - before[1])
+    assert out.shape == ref.shape == (1, 2, 13 * 1600) and np.isfinite(out).all()
+    assert np.allclose(out, ref, rtol=2e-2, atol=2e-3), float(np.abs(out - ref).max())
+    assert launched[0] > 0 and launched[1] == launched[0]

@@ -109,7 +109,7 @@ def test_stepwise_is_the_scan_loop(unets):
 def test_unported_and_invalid_modes_raise():
     _, pconf = configs(dict(steps=8))
     pdiff = port_gdm.create_gaussian_diffusion(pconf, sampling_steps=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="UNet encoder cache and encoder_reuse"):
         pdiff.sample(None, (1, 4, 2), {}, None, device="cpu", encoder_reuse=2)
     with pytest.raises(ValueError):
         pdiff.sample(None, (1, 4, 2), {}, None, device="cpu", mode="euler")

@@ -2,9 +2,10 @@
 jen1_tpu `Jen1.generate`, text_guided, chunked decode, with the VDM
 sampler and with the GDM (DDIM, DPM-Solver++, and DDIM over int8 weights).
 
-The fixture is tests/test_api.py's tiny model and codec with the flash path
-engaged (use_flash_attention=True, flash_min_seq_len=128): 13 s at 1600 Hz
-with a 40-sample hop is 520 latent frames, so the L/4 transformer sees 130
+The fixture (`torch_port_util.jen1_pair`) is tests/test_api.py's tiny
+model and codec with the flash path engaged (use_flash_attention=True,
+flash_min_seq_len=128): 13 s at 1600 Hz with a 40-sample hop is 520
+latent frames, so the L/4 transformer sees 130
 frames (Pallas interpret mode in JAX, the plain version in the port) and
 the decode takes the chunked branch with 4 chunks. Both packages get the
 same UNet, T5 and codec weights (ckpt/from_jax.py) and the same draws
@@ -18,56 +19,26 @@ import numpy as np
 import pytest
 import torch
 
-from jen1_tpu.api.generation import Jen1 as JJen1
 from jen1_tpu.codec.model import EncodecConfig as JCodecConfig, EncodecModel as JCodec
-from jen1_tpu.conditioning import conditioners as jcond
-from jen1_tpu_torch.api.generation import Jen1, latent_length
-from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
-from jen1_tpu_torch.conditioning import conditioners as pcond
 from jen1_tpu.ops import int8_matmul as jint8
+from jen1_tpu_torch.api.generation import latent_length
 from jen1_tpu_torch.diffusion import vdm as port_vdm
 from jen1_tpu_torch.ops.int8_matmul import (
     attach_qweights, clear_qweights, quantize_conv_params,
 )
 from torch_port_util import (
-    assert_close, flash_model_configs, gdm_draws, inject_gdm_draws, load, random_params,
+    TINY_CODEC, assert_close, gdm_draws, inject_gdm_draws, jen1_pair, one_torch_thread,
     vdm_initial_noise,
 )
 
-CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2))
-RVQ = dict(n_q=2, bins=16)  # the JAX model also builds its quantizer
 SECONDS, STEPS = 13, 2
 BAR = dict(rtol=2e-2, atol=2e-3)
 
 
 @pytest.fixture(scope="module")
 def pair():
-    jcfg, pcfg = flash_model_configs()
-    mc = jcfg.model_config
-    jcodec = JCodec(JCodecConfig(**CODEC, **RVQ))
-    jt5 = jcond.T5Conditioner(output_dim=mc.context_embedding_features,
-                              t5_model_name="tiny-test",
-                              max_length=mc.context_embedding_max_length)
-    jj = JJen1(ckpt_path=None, sample_rate=1600, config=jcfg, codec=jcodec,
-               conditioner=jcond.MultiConditioner({"prompt": jt5}))
-    shapes = jax.eval_shape(lambda r: jj.model.init(
-        r, jnp.zeros((1, 40, mc.in_channels)), jnp.zeros((1,)),
-        embedding=jnp.zeros((1, mc.context_embedding_max_length,
-                             mc.context_embedding_features)),
-        channels_list=[jnp.zeros((1, 40, mc.context_channels[0]))],
-    ), jax.random.PRNGKey(0))
-    params = random_params(shapes, seed=1)
-    jj._params = params  # the weights generate() samples with
-
-    pcodec = EncodecModel(EncodecConfig(**CODEC), device="cpu")
-    load(pcodec.decoder, jcodec.params["decoder"])
-    pt5 = pcond.T5Conditioner(mc.context_embedding_features, "tiny-test",
-                              mc.context_embedding_max_length, device="cpu")
-    load(pt5, {"encoder": jt5.params["encoder"], "proj": jt5.params["proj"]})
-    pj = Jen1(sample_rate=1600, config=pcfg, codec=pcodec,
-              conditioner=pcond.MultiConditioner({"prompt": pt5}), device="cpu")
-    load(pj.model, params)
-    return jj, pj
+    with one_torch_thread():
+        yield jen1_pair()
 
 
 @pytest.mark.parametrize("seed,prompt", [(5, "a beautiful song")])
@@ -82,7 +53,7 @@ def test_generate_matches_jax(pair, seed, prompt, monkeypatch):
     assert out.shape == ref.shape == (1, 2, SECONDS * 1600)
     assert np.isfinite(out).all()
     assert_close(out, ref, **BAR)
-    assert set(pj.last_timings) == {"prep", "conditioner", "assemble", "sampler",
+    assert set(pj.last_timings) == {"prep", "encode", "conditioner", "assemble", "sampler",
                                     "decode", "fetch"}
 
 
@@ -98,12 +69,12 @@ def test_int16_output_and_seed_dependence(pair):
 
 def test_unported_arguments_raise(pair):
     _, pj = pair
-    for kw in ({"use_gdm": True, "encoder_reuse": 2}, {"task": "music_inpaint"},
-               {"decode_mode": "whole"}):
+    for kw in ({"use_gdm": True, "encoder_reuse": 2}, {"output_transport": "device"}):
         with pytest.raises(NotImplementedError):
             pj.generate("x", seed=1, steps=1, seconds=1, **kw)
     for kw in ({"output_dtype": "int8"}, {"sampler_mode": "dpm++"},
-               {"sampler_mode": "euler", "use_gdm": True}, {"encoder_reuse": 2}):
+               {"sampler_mode": "euler", "use_gdm": True}, {"encoder_reuse": 2},
+               {"decode_mode": "chunked_fp16"}, {"encode_mode": "segmented"}):
         with pytest.raises(ValueError):
             pj.generate("x", seed=1, steps=1, seconds=1, **kw)
 
@@ -154,7 +125,7 @@ def test_generate_gdm_matches_jax(pair, mode, quantized, monkeypatch):
 def test_latent_length_matches_jax_encoder_shape():
     """text_guided derives the latent grid without encoding; the JAX
     package gets it from eval_shape of its chunked encoder."""
-    jcodec = JCodec(JCodecConfig(**CODEC, **RVQ))
+    jcodec = JCodec(JCodecConfig(**TINY_CODEC))
     for samples in (1600, 1620, 20800, 20810):
         want = jax.eval_shape(jcodec.encode_latent_chunked,
                               jax.ShapeDtypeStruct((1, samples, 2), jnp.float32)).shape[1]

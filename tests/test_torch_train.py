@@ -368,6 +368,39 @@ def test_accumulation_and_ema():
         torch.testing.assert_close(e, 0.9 * a + 0.1 * p.detach(), rtol=1e-6, atol=1e-7)
 
 
+def test_train_and_eval_steps_run_without_tf32():
+    """train_step and eval_step run the UNet's forward and backward with
+    cuDNN's and cuBLAS's TF32 off, whatever the caller set (cuDNN's flag
+    defaults to True), as JAX runs fp32 convs at Precision.HIGHEST; the
+    flags are the caller's again afterwards. Read through hooks, so this
+    holds on the CPU as on the card."""
+    _, pcfg = flash_model_configs()
+    model = init_module(port_unet(pcfg.model_config), torch.Generator().manual_seed(0))
+    trainer = UnifiedMultiTaskTrainer(
+        pcfg, model, create_gaussian_diffusion(pcfg.diffusion_config.gaussian_diffusion),
+        device="cpu")
+    seen = []
+
+    def flags(*_):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+
+    model.register_forward_hook(flags)
+    model.register_full_backward_hook(flags)
+    batch = {k: torch.from_numpy(v) for k, v in step_batch(pcfg.model_config, 48).items()}
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        trainer.train_step(trainer.init_state(), batch, torch.Generator().manual_seed(0),
+                           Coin(0))
+        n_train = len(seen)
+        trainer.eval_step(None, batch, torch.Generator().manual_seed(1))
+        after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    assert n_train >= 2 and len(seen) > n_train  # forwards and backwards, then eval
+    assert set(seen) == {(False, False)} and after == (True, True)
+
+
 # ------------------------------------------------------ (e) optimizers
 
 
@@ -485,7 +518,7 @@ def test_cli_refuses_unported_options(tmp_path, args, match):
 
 def test_cli_refuses_wav_input(tmp_path):
     path, _ = tiny_cli_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="codec encoder"):
+    with pytest.raises(NotImplementedError, match="wav files"):
         train_cli.main(["--config", str(path), "--dataset-dir", str(tmp_path),
                         "--device", "cpu"])
 
@@ -494,14 +527,16 @@ def test_cli_refuses_wav_input(tmp_path):
 
 
 def shared_fields(port, ref, path=""):
-    """Every field of the port's dataclass equals the JAX one's, tuples as
-    tuples."""
-    for f in dataclasses.fields(port):
-        a, b = getattr(port, f.name), getattr(ref, f.name)
+    """The port's dataclass has the JAX one's fields, at every nesting
+    level, and every field equals the JAX one's, tuples as tuples."""
+    names = [f.name for f in dataclasses.fields(port)]
+    assert set(names) == {f.name for f in dataclasses.fields(ref)}, path or "Config"
+    for name in names:
+        a, b = getattr(port, name), getattr(ref, name)
         if dataclasses.is_dataclass(a):
-            shared_fields(a, b, f"{path}{f.name}.")
+            shared_fields(a, b, f"{path}{name}.")
         else:
-            assert type(a) is type(b) and a == b, f"{path}{f.name}: {a!r} != {b!r}"
+            assert type(a) is type(b) and a == b, f"{path}{name}: {a!r} != {b!r}"
 
 
 @pytest.mark.parametrize("which", ["default", "longform"])
@@ -513,6 +548,22 @@ def test_jax_config_json_loads(tmp_path, which):
     shared_fields(port, ref)
     if which == "longform":
         shared_fields(longform_config(), ref)
+
+
+@pytest.mark.parametrize("key,value,field", [
+    ("model_config.use_snake", True, None), ("model_config.use_stft", True, None),
+    ("model_config.stft_hop_length", 128, None), ("model_config.remat", True, None),
+    ("conditioner_config.t5_config.weights_path", "t5.safetensors", None),
+    ("conditioner_config.int_config.max_val", 60, "conditioner_config.int_config"),
+    ("codec_weights_path", "encodec.pt", None), ("lora_config.alpha", 8.0, None),
+])
+def test_jax_config_with_unported_field_raises(key, value, field):
+    """A JAX JSON whose unported fields leave their defaults would build
+    another model than JAX does: the port refuses it, naming the field and
+    the ROADMAP item, instead of dropping the field."""
+    d = json.loads(JaxConfig().override(**{key: value}).to_json())
+    with pytest.raises(NotImplementedError, match=f"{field or key}=.*ROADMAP Queue 1, '"):
+        Config.from_dict(d)
 
 
 def test_config_round_trip_and_override():

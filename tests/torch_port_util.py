@@ -11,7 +11,12 @@ import jax
 import numpy as np
 import torch
 
-from jen1_tpu_torch.ckpt.from_jax import load_flax_params
+from jen1_tpu_torch.ckpt.from_jax import load_encodec, load_flax_params
+
+# The tiny codec of tests/test_api.py: 1600 Hz, a 40-sample hop, so 13 s are
+# 520 latent frames (four 150-frame chunks); a 2-stage RVQ of 16 entries.
+TINY_CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2),
+                  n_q=2, bins=16)
 
 
 def np_tree(tree):
@@ -50,6 +55,73 @@ def random_params(shape_tree, seed: int):
         }
 
     return walk(shape_tree)
+
+
+def jen1_pair(codec_config=TINY_CODEC):
+    """A jen1_tpu `Jen1` and a jen1_tpu_torch `Jen1(device="cpu")` with the
+    same UNet (flash path engaged, `flash_model_configs`), T5 and codec
+    (encoder, decoder and RVQ) weights: tests/test_api.py's tiny model."""
+    import jax.numpy as jnp
+
+    from jen1_tpu.api.generation import Jen1 as JJen1
+    from jen1_tpu.codec.model import EncodecConfig as JCodecConfig, EncodecModel as JCodec
+    from jen1_tpu.conditioning import conditioners as jcond
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
+    from jen1_tpu_torch.conditioning import conditioners as pcond
+
+    jcfg, pcfg = flash_model_configs()
+    mc = jcfg.model_config
+    jcodec = JCodec(JCodecConfig(**codec_config))
+    jt5 = jcond.T5Conditioner(output_dim=mc.context_embedding_features,
+                              t5_model_name="tiny-test",
+                              max_length=mc.context_embedding_max_length)
+    jj = JJen1(ckpt_path=None, sample_rate=codec_config["sample_rate"], config=jcfg,
+               codec=jcodec, conditioner=jcond.MultiConditioner({"prompt": jt5}))
+    shapes = jax.eval_shape(lambda r: jj.model.init(
+        r, jnp.zeros((1, 40, mc.in_channels)), jnp.zeros((1,)),
+        embedding=jnp.zeros((1, mc.context_embedding_max_length,
+                             mc.context_embedding_features)),
+        channels_list=[jnp.zeros((1, 40, mc.context_channels[0]))],
+    ), jax.random.PRNGKey(0))
+    params = random_params(shapes, seed=1)
+    jj._params = params  # the weights generate() samples with
+
+    pcodec = EncodecModel(EncodecConfig(**codec_config), device="cpu")
+    load_encodec(pcodec, np_tree(jcodec.params))
+    pt5 = pcond.T5Conditioner(mc.context_embedding_features, "tiny-test",
+                              mc.context_embedding_max_length, device="cpu")
+    load(pt5, {"encoder": jt5.params["encoder"], "proj": jt5.params["proj"]})
+    pj = Jen1(sample_rate=codec_config["sample_rate"], config=pcfg, codec=pcodec.eval(),
+              conditioner=pcond.MultiConditioner({"prompt": pt5}), device="cpu")
+    load(pj.model, params)
+    return jj, pj
+
+
+def synthetic_clip(seed: int, seconds: float, sr: int, channels: int = 2) -> np.ndarray:
+    """A seeded test clip (T, channels): two sines per channel plus noise."""
+    g = rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    freqs = g.uniform(40.0, 0.4 * sr, (channels, 2))
+    tones = sum(np.sin(2 * np.pi * freqs[:, i] * t[:, None] + g.uniform(0, 6.3))
+                for i in range(2))
+    return (0.3 * tones + 0.05 * g.standard_normal((len(t), channels))).astype(np.float32)
+
+
+class one_torch_thread:
+    """Run a block with one intra-op torch thread, then restore the count.
+
+    A tiny codec's LSTM steps one frame at a time; on a CPU shared by
+    several test workers each step's parallel region waits for threads the
+    other workers hold (minutes for a 520-step LSTM at 8 threads under
+    load, milliseconds at one thread)."""
+
+    def __enter__(self):
+        self.threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.threads)
 
 
 def rng(seed: int) -> np.random.Generator:
