@@ -38,37 +38,67 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. small-train - one train step of a tiny trainer on the card against the
                    CPU (same weights, batch and draws), both causal variants:
                    per-task losses and every gradient leaf.
-  7. small-tasks - the tiny slice's music_inpaint and music_cont (VDM) and
+  7. small-ckpt  - a tiny trainer (with EMA) on the card takes 2 steps, saves
+                   its state (CheckpointManager), and a fresh trainer restores
+                   it bit for bit; both take one more step with the same
+                   draws (losses and gradient leaves at the small-train
+                   bars). Jen1(ckpt_path=dir, use_ema_params=True) loads the
+                   saved EMA, and its 2-step bf16-compute generate() with
+                   weights_dtype="bfloat16" equals the fp32-weights one.
+  8. small-tasks - the tiny slice's music_inpaint and music_cont (VDM) and
                    music_cont (GDM DDIM) of a seeded clip on the card against
                    the CPU (same weights and draws), with their causal K1
                    launches; the codec's chunked and segmented encodes and
                    the RVQ codes on the card against the CPU.
-  8. main        - Jen1(longform_config()).generate(): one warm-up request,
+  9. small-long  - the tiny pair's generate_long_stream (three 13 s windows,
+                   4 s of context) on the card against the CPU's
+                   generate_long with the same weights and draws, K1 launches
+                   per window (the continuation windows' all causal);
+                   save_audio to WAV (reads back as its int16 quantization)
+                   and FLAC (STREAMINFO checked).
+ 10. main        - Jen1(longform_config()).generate(): one warm-up request,
                    then two timed requests (100 steps, 30 s, B=1); checks
                    shapes, finiteness and K1 launches, every one on the
                    tensor-core route; then one more request under
                    torch.profiler for the device's busy share and K1's
                    device time.
-  9. tasks       - the same Jen1: music_inpaint of a seeded 30 s clip over
+ 11. tasks       - the same Jen1: music_inpaint of a seeded 30 s clip over
                    10-20 s and music_cont of its first 10 s to 30 s, 100 VDM
                    steps each after a short warm-up: walls, phase walls
                    (encode included), peak memory, K1 launches (200 each,
                    all on the tensor-core route, the continuation's all
                    causal); the 30 s encode chunked against whole-clip; the
                    bf16 chunked decode against the fp32 one; one 10-step
-                   continuation under torch.profiler.
- 10. flagship    - Jen1(Config()) with the UNet's convs quantized at the
+                   continuation under torch.profiler, then the chunked
+                   encode and the chunked decode each under torch.profiler
+                   (their fp32 GEMM launches: the codec LSTMs' steps).
+ 12. long        - the same Jen1: generate_long_stream over 70 s (three 30 s
+                   windows, 10 s of context, 100 VDM steps each): the wall
+                   to the first chunk, each window's wall and phase walls,
+                   peak memory, K1 launches (600, all on the tensor-core
+                   route, 400 causal); save_audio to WAV and FLAC: walls and
+                   bytes.
+ 13. bf16-weights- a second Jen1(longform_config(), weights_dtype="bfloat16")
+                   with the same seed: the UNet's weight bytes, then paired
+                   100-step 30 s requests (fp32, bf16, bf16, fp32): walls,
+                   peak memory, max|diff| (0 expected: bf16 storage under
+                   bf16 compute is bit-identical).
+ 14. flagship    - Jen1(Config()) with the UNet's convs quantized at the
                    default thresholds: the census, one UNet forward at
                    (2, 4500, 128) with K4, with the plain version and with
                    fp32 weights; one warm-up and two timed 100-step 30 s
                    DDIM requests (K4 launches, shapes, finiteness), one
                    request with fp32 weights, one 10-step request under
                    torch.profiler.
- 11. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
+ 15. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
                    steps, 5 timed steps, launches of K1/K2/K3 per step (all
                    on the tensor-core route), and one more step under
-                   torch.profiler with K1+K3's and K2's device time.
+                   torch.profiler with K1+K3's and K2's device time; then
+                   the whole train state (305 M parameters, AdamW moments)
+                   saved by CheckpointManager and restored into a fresh
+                   trainer: bytes, walls, free disk; one more step on each,
+                   with the same draws, gives equal losses (train bars).
 The line before the last is the `{"kernels": [...]}` record; the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -175,6 +205,14 @@ FLAGSHIP_QUANTIZED = 56  # conv kernels the JAX rule selects
 TASKS_SEED = 31
 TASKS_SCOPE = (10.0, 20.0)
 TASKS_CONT_SECONDS = 10
+# long-form: three 30 s windows with 10 s of context make 70 s
+LONG_TOTAL_SECONDS = 70
+LONG_WINDOW_SECONDS = 30
+LONG_CONTEXT_SECONDS = 10
+LONG_WINDOWS = 3
+# the tiny long-form: 13 s windows (520 latent frames: the level-1
+# transformer's 130 frames take the flash path), 4 s of context, 29 s
+SMALL_LONG = dict(total_seconds=29, window_seconds=13, context_seconds=4, seed=5, steps=4)
 # the tiny slice's codec: 1600 Hz, a 40-sample hop, a 2 x 16-entry RVQ
 TINY_CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2),
                   n_q=2, bins=16)
@@ -901,10 +939,227 @@ def phase_small_tasks(torch) -> None:
         vdm.initial_noise, gdm.initial_noise, gdm.step_noise = draws
 
 
+def phase_small_ckpt(torch) -> None:
+    """Checkpoints at tiny widths on the card: a tiny trainer with EMA
+    (tiny_train_config, fused AdamW) takes 2 steps and saves its state; a
+    fresh trainer restores it, every tensor bit-identical to the saved one;
+    then both take one more step with the same batch and draws, held to
+    the small-train bars (losses rtol 2e-3, every gradient leaf within
+    5e-3 * max|g| of the first trainer's). Jen1(ckpt_path=dir,
+    use_ema_params=True) holds the saved EMA bit for bit; under bf16
+    compute its 2-step generate() with weights_dtype="bfloat16" must equal
+    the fp32-weights one exactly."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    cfg = tiny_train_config()
+    cfg.use_ema, cfg.ema_decay = True, 0.5
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in tiny_batch(cfg.model_config).items()}
+
+    def step(trainer, state, i: int):
+        return trainer.train_step(state, batch, step_generator("cuda", 0, i),
+                                  np.random.default_rng((0, i)))
+
+    trainer = build_trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    for i in range(2):
+        state, _ = step(trainer, state, i)
+    saved = {k: v.clone() for k, v in trainer.state_dict(state).items()}
+    with scratch_dir() as d:
+        CheckpointManager(d).save(state.step, trainer.state_dict(state), loss=0.0)
+        fresh = build_trainer(cfg, device="cuda")
+        flat, _ = CheckpointManager(d).restore(map_location="cuda")
+        fresh_state = fresh.load_state_dict(flat)
+        identical = all(torch.equal(t, saved[k]) for k, t in fresh.state_dict(fresh_state).items())
+        _, m_a = step(trainer, state, 2)
+        _, m_b = step(fresh, fresh_state, 2)
+        losses_ok = all(np.isclose(float(m_b[k]), float(m_a[k]), rtol=2e-3, atol=0)
+                        for k in m_a if k.startswith("loss"))
+        worst, worst_name = worst_grad_leaf(fresh.model, [p.grad for p in trainer.params])
+        log(f"[small-ckpt] {len(saved)} tensors saved at step 2 and restored: "
+            f"{'bit-identical' if identical else 'DIFFER'}; step 3 loss/train "
+            f"{float(m_a['loss/train']):.6f} (saving trainer) vs {float(m_b['loss/train']):.6f} "
+            f"(restored); worst gradient leaf {worst_name} at {worst:.4f} of its bar")
+        if not identical or not losses_ok or worst > 1.0:
+            raise SystemExit("chip_smoke: the restored tiny trainer differs from the saved one")
+
+        gcfg = copy.deepcopy(cfg)
+        gcfg.model_config = dataclasses.replace(gcfg.model_config, dtype="bfloat16")
+        codec = EncodecModel(EncodecConfig(**TINY_CODEC), device="cuda")
+        jen1 = {dtype: Jen1(d, sample_rate=1600, config=gcfg, codec=codec, use_ema_params=True,
+                            weights_dtype=dtype, device="cuda")
+                for dtype in ("float32", "bfloat16")}
+    ema = all(torch.equal(p, saved[f"ema_params/{n}"])
+              for n, p in jen1["float32"].model.named_parameters())
+    outs = {dtype: j.generate("a beautiful song", seed=5, steps=2, seconds=13)
+            for dtype, j in jen1.items()}
+    diff = float(np.abs(outs["float32"] - outs["bfloat16"]).max())
+    n_bf16 = sum(p.dtype == torch.bfloat16 for p in jen1["bfloat16"].model.parameters())
+    log(f"[small-ckpt] Jen1(ckpt_path, use_ema_params=True) holds the saved EMA: {ema}; "
+        f"bf16-compute generate() with bf16 weights ({n_bf16} tensors bf16) vs fp32 weights: "
+        f"shape {outs['bfloat16'].shape}, max|diff| = {diff:.3e} (want 0)")
+    if not ema or diff != 0.0 or not np.isfinite(outs["float32"]).all():
+        raise SystemExit("chip_smoke: the checkpoint-loaded tiny Jen1 failed its checks")
+
+
+def flac_streaminfo(data: bytes):
+    """(sample rate, channels, bits, total samples) of a FLAC's STREAMINFO."""
+    if data[:4] != b"fLaC" or data[4] & 0x7F != 0:
+        raise SystemExit("chip_smoke: the FLAC file does not start with STREAMINFO")
+    bits = int.from_bytes(data[18:26], "big")
+    return bits >> 44, ((bits >> 41) & 7) + 1, ((bits >> 36) & 31) + 1, bits & ((1 << 36) - 1)
+
+
+def save_both(out, sample_rate: int, tag: str):
+    """save_audio of `out` to WAV and FLAC in a scratch directory: logs
+    walls and bytes, checks that the WAV reads back as the int16
+    quantization of example 0 and that the FLAC's STREAMINFO holds its
+    rate, channels and length. Returns {ext: (wall s, bytes)}."""
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import save_audio
+    from jen1_tpu_torch.data.audio_io import read_wav
+
+    result = {}
+    with scratch_dir() as d:
+        for ext in ("wav", "flac"):
+            path = str(Path(d) / f"out.{ext}")
+            t0 = time.perf_counter()
+            save_audio(out, path, sample_rate)
+            wall = time.perf_counter() - t0
+            data = Path(path).read_bytes()
+            result[ext] = (wall, len(data))
+            if ext == "wav":
+                back, sr = read_wav(path)
+                want = (np.clip(out[0].T, -1, 1) * 32767.0).astype(np.int16)
+                ok = sr == sample_rate and np.array_equal(back, want.astype(np.float32) / 32768.0)
+            else:
+                ok = flac_streaminfo(data) == (sample_rate, out.shape[1], 16, out.shape[-1])
+            log(f"[{tag}] save_audio .{ext}: wall {wall:.3f} s, {len(data)} bytes, "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: save_audio .{ext} wrote a bad file")
+    return result
+
+
+def phase_small_long(torch) -> None:
+    """Long-form at tiny widths, on the card against the CPU: the tiny pair
+    of phase small, generate_long_stream over SMALL_LONG (three 13 s
+    windows, 4 s of context) on the card, generate_long on the CPU, each
+    window's x_T from one CPU stream for both devices. Bar: rtol 2e-2 /
+    atol 2e-3, as in phase small. K1 per window: 2 per UNet forward x 4
+    steps, the continuation windows' all causal. Then save_audio to WAV and
+    FLAC."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import vdm
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    cpu, card = tiny_pair(torch)
+    stream = torch.Generator().manual_seed(7)
+    noises = [torch.randn((1, 520, 8), generator=stream) for _ in range(3)]
+    draw = vdm.initial_noise
+
+    def feed():
+        it = iter(noises)
+        vdm.initial_noise = lambda shape, generator, device: next(it).to(device)
+
+    try:
+        feed()
+        ref = cpu.generate_long("a beautiful song", **SMALL_LONG)
+        feed()
+        chunks, per_window = [], []
+        fa.LAUNCHES = fa.LAUNCHES_CAUSAL = 0
+        seen = (0, 0)
+        for chunk in card.generate_long_stream("a beautiful song", **SMALL_LONG):
+            now = (fa.LAUNCHES, fa.LAUNCHES_CAUSAL)
+            per_window.append((now[0] - seen[0], now[1] - seen[1]))
+            seen = now
+            chunks.append(chunk)
+    finally:
+        vdm.initial_noise = draw
+    out = np.concatenate(chunks, axis=-1)
+    k1 = 2 * SMALL_LONG["steps"]
+    want = [(k1, 0)] + [(k1, k1)] * 2
+    err = float(np.abs(out - ref).max())
+    ok = (out.shape == ref.shape == (1, 2, 29 * 1600) and np.isfinite(out).all()
+          and np.allclose(out, ref, rtol=2e-2, atol=2e-3) and per_window == want)
+    log(f"[small-long] generate_long_stream card vs generate_long CPU: {len(chunks)} chunks "
+        f"{[c.shape[-1] for c in chunks]}, shape {out.shape}, max|diff|={err:.3e} (rtol 2e-2, "
+        f"atol 2e-3); K1 launches (all, causal) per window {per_window} (want {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the tiny long-form output on the card disagrees with "
+                         "the CPU")
+    save_both(out, 1600, "small-long")
+
+
 def launch_counts():
     from jen1_tpu_torch.ops import flash_attention as fa
 
     return fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV
+
+
+def worst_grad_leaf(model, refs):
+    """(largest share of its bar, leaf name) of `model`'s gradient leaves
+    against `refs`: each leaf within 5e-3 * max|ref| of the leaf, that
+    scale floored at GRAD_LEAF_FLOOR of the largest leaf's."""
+    floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
+    worst, worst_name = 0.0, ""
+    for (name, p), ref in zip(model.named_parameters(), refs):
+        bar = 5e-3 * max(ref.abs().max().item(), floor)
+        ratio = (p.grad.cpu() - ref.cpu()).abs().max().item() / bar
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def scratch_dir():
+    """A temporary directory under build/ (which .gitignore lists)."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=ROOT / "build")
+
+
+def tiny_train_config():
+    """tiny_test_config widths, fp32, flash_min_seq_len 128 and the tiny T5:
+    the level-1 transformer's 130 frames at L = 520 take the flash path
+    with head dim 8, zero-padded to 16."""
+    import dataclasses
+
+    from jen1_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg.model_config = dataclasses.replace(cfg.model_config, use_flash_attention=True,
+                                           flash_min_seq_len=128)
+    cfg.conditioner_config.t5_config.t5_model_name = "tiny-test"
+    cfg.conditioner_config.t5_config.max_length = cfg.model_config.context_embedding_max_length
+    return cfg
+
+
+def tiny_batch(mc):
+    """A seeded host batch of 3 at L = 520 with one half-masked prompt."""
+    import numpy as np
+
+    g = np.random.default_rng(0)
+    m = mc.context_embedding_max_length
+    mask = np.ones((3, m), bool)
+    mask[-1, m // 2:] = False
+    return {
+        "latents": g.standard_normal((3, 520, mc.in_channels)).astype(np.float32),
+        "text_emb": g.standard_normal((3, m, mc.context_embedding_features)).astype(np.float32),
+        "text_mask": mask,
+    }
 
 
 def phase_small_train(torch) -> None:
@@ -919,26 +1174,12 @@ def phase_small_train(torch) -> None:
 
     import numpy as np
 
-    from jen1_tpu_torch.config import tiny_test_config
     from jen1_tpu_torch.train.train import build_trainer
     from jen1_tpu_torch.train.trainer import StepDraws, step_generator
 
-    cfg = tiny_test_config()
-    cfg.model_config = dataclasses.replace(cfg.model_config, use_flash_attention=True,
-                                           flash_min_seq_len=128)
-    cfg.conditioner_config.t5_config.t5_model_name = "tiny-test"
-    cfg.conditioner_config.t5_config.max_length = cfg.model_config.context_embedding_max_length
+    cfg = tiny_train_config()
     cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
-    mc = cfg.model_config
-    g = np.random.default_rng(0)
-    m = mc.context_embedding_max_length
-    mask = np.ones((3, m), bool)
-    mask[-1, m // 2:] = False
-    host = {
-        "latents": g.standard_normal((3, 520, mc.in_channels)).astype(np.float32),
-        "text_emb": g.standard_normal((3, m, mc.context_embedding_features)).astype(np.float32),
-        "text_mask": mask,
-    }
+    host = tiny_batch(cfg.model_config)
 
     class Coin:
         def __init__(self, value):
@@ -966,14 +1207,7 @@ def phase_small_train(torch) -> None:
             metrics[name] = {k: float(v) for k, v in mt.items()}
         losses_ok = all(np.isclose(metrics["card"][k], metrics["cpu"][k], rtol=2e-3, atol=0)
                         for k in metrics["cpu"] if k.startswith("loss"))
-        refs = [p.grad for p in cpu.model.parameters()]
-        floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
-        worst, worst_name = 0.0, ""
-        for (name, pg), ref in zip(card.model.named_parameters(), refs):
-            bar = 5e-3 * max(ref.abs().max().item(), floor)
-            ratio = (pg.grad.cpu() - ref).abs().max().item() / bar
-            if ratio >= worst:
-                worst, worst_name = ratio, name
+        worst, worst_name = worst_grad_leaf(card.model, [p.grad for p in cpu.model.parameters()])
         log(f"[small-train] text_guided causal={bool(coin)}: losses card "
             + " ".join(f"{k}={v:.6f}" for k, v in metrics["card"].items())
             + f"; cpu loss/train={metrics['cpu']['loss/train']:.6f} "
@@ -1143,7 +1377,119 @@ def phase_tasks(torch, jen1) -> int:
                                                    seconds=SLICE_SECONDS, **cont))
     log_kernel_time(by_name, "tasks-profile", ("flash_fwd_mma",), "causal K1",
                     "the profiled continuation")
+    log_kernel_time(by_name, "tasks-profile", ("sgemm",), "fp32 sgemm",
+                    "the profiled continuation")
+    # the codec alone: each LSTM layer runs one fp32 GEMM per time step
+    for what, fn in (("30 s chunked encode", lambda: jen1.codec.encode_latent_chunked(audio)),
+                     ("30 s chunked decode", lambda: jen1.codec.decode_latent_chunked(z))):
+        by_name = profile_window(torch, "tasks-codec-profile", what, fn)
+        log_kernel_time(by_name, "tasks-codec-profile", ("sgemm",), "fp32 sgemm", what)
     return total
+
+
+def phase_long(torch, jen1) -> int:
+    """Long-form at full width on the phase-main Jen1: generate_long_stream
+    over LONG_TOTAL_SECONDS in LONG_WINDOW_SECONDS windows with
+    LONG_CONTEXT_SECONDS of context, SLICE_STEPS VDM steps, B=1. Logs the
+    wall to the first chunk, each window's wall and phase walls, the total
+    wall and the peak device memory; K1 launches must be 2 per UNet
+    forward in every window, all on the tensor-core route, the
+    continuation windows' all causal. Then save_audio to WAV and FLAC.
+    Returns the counted K1 launches."""
+    import numpy as np
+
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    prompt, seed = SLICE_PROMPTS[0]
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_CAUSAL = 0
+    fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    chunks = []
+    torch.cuda.synchronize()
+    t0 = prev = time.perf_counter()
+    for i, chunk in enumerate(jen1.generate_long_stream(
+            prompt, total_seconds=LONG_TOTAL_SECONDS, window_seconds=LONG_WINDOW_SECONDS,
+            context_seconds=LONG_CONTEXT_SECONDS, seed=seed, steps=SLICE_STEPS)):
+        now = time.perf_counter()  # generate() ends in a host copy of its output
+        phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
+        what = "wall to the first chunk" if i == 0 else "wall"
+        log(f"[long] window {i}: {what} {now - prev:.4f} s; phases (s): {phases}; chunk "
+            f"{chunk.shape}; K1 launches so far {fa.LAUNCHES}, causal {fa.LAUNCHES_CAUSAL}")
+        prev = now
+        chunks.append(chunk)
+    total_wall = time.perf_counter() - t0
+    out = np.concatenate(chunks, axis=-1)
+    counts = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_CAUSAL)
+    bwd = (fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    samples = LONG_TOTAL_SECONDS * jen1.sample_rate
+    finite = bool(np.isfinite(out).all())
+    log(f"[long] {LONG_TOTAL_SECONDS} s in {len(chunks)} windows: total wall {total_wall:.4f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated()} bytes; shape {out.shape}; "
+        f"finite {finite}; rms {float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}; "
+        f"K1 launches (all, tensor-core, causal) {counts}; backward {bwd}")
+    per_window = 2 * SLICE_STEPS
+    want = (LONG_WINDOWS * per_window, LONG_WINDOWS * per_window,
+            (LONG_WINDOWS - 1) * per_window)
+    if out.shape != (1, 2, samples) or not finite or len(chunks) != LONG_WINDOWS:
+        raise SystemExit(f"chip_smoke: long-form gave shape {out.shape} in {len(chunks)} "
+                         f"chunks, or non-finite values")
+    if counts != want or bwd != (0, 0):
+        raise SystemExit(f"chip_smoke: long-form K1 launches {counts}, backward {bwd}; want "
+                         f"{want}, (0, 0)")
+    save_both(out, jen1.sample_rate, "long")
+    return counts[0]
+
+
+def phase_bf16_weights(torch, jen1) -> int:
+    """bf16 weight storage at full width: a second Jen1(longform_config(),
+    weights_dtype="bfloat16") with the same seed, sharing the T5 and the
+    codec; the UNet's weight bytes of both; paired 100-step 30 s requests
+    (fp32, bf16, bf16, fp32) with walls and peak memory; the two storages'
+    outputs must be equal (bf16 compute casts every matrix weight to bf16
+    at use). Returns the counted K1 launches."""
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.config import longform_config
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    half = Jen1(config=longform_config(), sample_rate=jen1.sample_rate, codec=jen1.codec,
+                conditioner=jen1.conditioner, weights_dtype="bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    models = {"fp32": jen1, "bf16": half}
+
+    def weight_bytes(model):
+        return sum(p.numel() * p.element_size() for p in model.parameters())
+
+    log(f"[bf16-weights] Jen1(weights_dtype='bfloat16') built in "
+        f"{time.perf_counter() - t0:.2f} s; UNet weight bytes fp32 storage "
+        f"{weight_bytes(jen1.model)}, bf16 storage {weight_bytes(half.model)} "
+        f"({sum(p.dtype == torch.bfloat16 for p in half.model.parameters())} tensors bf16)")
+    prompt, seed = SLICE_PROMPTS[1]
+    fa.LAUNCHES = fa.LAUNCHES_MMA = 0
+    outs = {}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, wall = sync_wall(torch, lambda: models[name].generate(
+            prompt, seed=seed, steps=SLICE_STEPS, seconds=SLICE_SECONDS))
+        log(f"[bf16-weights] {name} weights: wall {wall:.4f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes ({base} allocated before); "
+            f"finite {bool(np.isfinite(out).all())}")
+        outs.setdefault(name, []).append(out)
+    launches, mma = fa.LAUNCHES, fa.LAUNCHES_MMA
+    diff = float(np.abs(outs["fp32"][0] - outs["bf16"][0]).max())
+    repeat = max(float(np.abs(a[0] - a[1]).max()) for a in outs.values())
+    log(f"[bf16-weights] max|diff| bf16 vs fp32 weights {diff:.3e} (want 0); between repeats "
+        f"of one storage {repeat:.3e}; K1 launches {launches}, {mma} on the tensor-core route")
+    del half, models
+    want = 4 * 2 * SLICE_STEPS
+    if diff != 0.0 or launches != want or mma != want or not np.isfinite(outs["bf16"][0]).all():
+        raise SystemExit(f"chip_smoke: bf16 weights gave max|diff| {diff} against fp32 "
+                         f"weights, or K1 launches {launches} ({mma} tensor-core), want {want}")
+    return launches
 
 
 def flagship_forwards(torch, im, jen1, q) -> None:
@@ -1339,7 +1685,7 @@ def log_kernel_time(by_name: dict, tag: str, keys, what: str, where: str) -> Non
 
 def phase_train(torch) -> tuple:
     """The training slice at full width; returns the K1/K2/K3 launches of
-    the timed steps."""
+    the timed steps and of the checkpoint's two steps."""
     import numpy as np
 
     from jen1_tpu_torch.config import longform_config
@@ -1422,7 +1768,76 @@ def phase_train(torch) -> tuple:
     log_kernel_time(by_name, "train-profile", ("flash_fwd_mma", "flash_bwd_dkv_mma"), "K1+K3",
                     "the profiled step")
     log_kernel_time(by_name, "train-profile", ("flash_bwd_dq_mma",), "K2", "the profiled step")
-    return total
+    more = train_checkpoint(torch, cfg, trainer, state, batch)
+    return tuple(a + b for a, b in zip(total, more))
+
+
+def train_checkpoint(torch, cfg, trainer, state, batch) -> tuple:
+    """The full-width train state through a checkpoint: CheckpointManager
+    saves it (every parameter, AdamW moment and counter) into a scratch
+    directory and a fresh trainer restores it; bytes, walls and the free
+    disk before the save are logged. Then each trainer takes one step with
+    the same draws: losses within the train bar (rtol 2e-3), and each step
+    launches K1, K2 and K3 TRAIN_LAUNCHES times, all on the tensor-core
+    route, counted from 0. Returns the K1/K2/K3 launches of those two steps."""
+    import shutil
+
+    import numpy as np
+
+    from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    draws = TRAIN_STEPS + 2
+    losses, launched = {}, (0, 0, 0)
+    with scratch_dir() as d:
+        free = shutil.disk_usage(d).free
+        flat = trainer.state_dict(state)
+        n_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+        mngr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mngr.save(state.step, flat, loss=0.0, learning_rate=cfg.optimizer_config.lr)
+        save_wall = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        fresh = build_trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, _ = mngr.restore(map_location="cuda")
+        fresh_state = fresh.load_state_dict(restored)
+        torch.cuda.synchronize()
+        restore_wall = time.perf_counter() - t0
+        del restored
+    log(f"[train-ckpt] {len(flat)} tensors, {n_bytes} bytes of state, {on_disk} bytes on disk "
+        f"({free} bytes free before the save): save wall {save_wall:.3f} s, restore into a "
+        f"fresh trainer {restore_wall:.3f} s")
+    del flat
+    per_step = []
+    for name, tr, st in (("saving", trainer, state), ("restored", fresh, fresh_state)):
+        fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+        fa.LAUNCHES_MMA = fa.LAUNCHES_DQ_MMA = fa.LAUNCHES_DKV_MMA = 0
+        _, m = tr.train_step(st, batch, step_generator(tr.device, TRAIN_SEED, draws),
+                             np.random.default_rng((TRAIN_SEED, draws)))
+        losses[name] = {k: float(v) for k, v in m.items()}
+        counts = launch_counts()
+        mma = (fa.LAUNCHES_MMA, fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV_MMA)
+        per_step.append(counts)
+        if counts != (TRAIN_LAUNCHES,) * 3 or mma != counts:
+            raise SystemExit(f"chip_smoke: the {name} trainer's step launched K1/K2/K3 "
+                             f"{counts}, {mma} on the tensor-core route; want "
+                             f"{TRAIN_LAUNCHES} each, all on the tensor-core route")
+        launched = tuple(a + b for a, b in zip(launched, counts))
+    ok = all(np.isclose(losses["restored"][k], losses["saving"][k], rtol=2e-3, atol=0)
+             for k in losses["saving"] if k.startswith("loss"))
+    log(f"[train-ckpt] one more step each: loss/train saving trainer "
+        f"{losses['saving']['loss/train']:.6f}, restored {losses['restored']['loss/train']:.6f}; "
+        f"grad_norm {losses['saving']['grad_norm']:.6f} / {losses['restored']['grad_norm']:.6f}; "
+        f"K1/K2/K3 launches per step {per_step}, all on the tensor-core route; "
+        f"losses {'ok' if ok else 'FAIL'}")
+    del fresh, fresh_state
+    if not ok:
+        raise SystemExit("chip_smoke: the restored full-width trainer's step differs")
+    return launched
 
 
 def main() -> int:
@@ -1440,9 +1855,13 @@ def main() -> int:
     phase_small(torch)
     phase_small_gdm(torch)
     phase_small_train(torch)
+    phase_small_ckpt(torch)
     phase_small_tasks(torch)
+    phase_small_long(torch)
     k1_generation, jen1 = phase_main(torch)
     k1_generation += phase_tasks(torch, jen1)
+    k1_generation += phase_long(torch, jen1)
+    k1_generation += phase_bf16_weights(torch, jen1)
     del jen1
     gc.collect()
     torch.cuda.empty_cache()

@@ -9,25 +9,35 @@ default) or, with `use_gdm=True`, the GDM samplers (DDIM, DDPM,
 `sampler_mode="dpm++"`). `init_audio` is encoded by the chunked, whole-clip
 or segmented EnCodec encoder and starts the sampler as x_T + latent, as in
 the JAX package; the decode is chunked (fp32 or bf16 weights) or whole.
-`encoder_reuse > 1`, checkpoint loading, EMA and bf16 weights, LoRA and
-`output_transport="device"` raise NotImplementedError naming their ROADMAP
-Queue 1 item; `generate_long*`, `generate_tracks` and `save_audio` are not
-ported yet.
+`generate_long` / `generate_long_stream` chain `music_cont` windows into a
+clip of any length, and `save_audio` writes WAV or FLAC.
 
-The model runs on `device` ("cuda" by default; "cpu" only when asked).
-Weights are random from `config.seed`, as in the JAX package without a
-checkpoint; `ckpt/from_jax.py` loads JAX parameter trees into them. int8
+Weights. `ckpt_path` is a checkpoint directory of this package
+(`ckpt/checkpoint.py`, written by the trainer; `use_ema_params` takes its
+EMA) or a reference JEN-1 `.pth`/`.pt`/`.bin` (`ckpt/torch_import.py`);
+without one the UNet is random from `config.seed`, as in the JAX package.
+The T5 encoder and the codec load `conditioner_config.t5_config.
+weights_path` and `codec_weights_path` (local torch state dicts) or are
+random, with a warning. `weights_dtype="bfloat16"` stores the UNet's matrix
+weights in bf16. `ckpt/from_jax.py` loads JAX parameter trees. int8
 weight-only inference is a property of the UNet's modules:
 `attach_qweights(jen1.model, quantize_conv_params(jen1.model))`
 (`ops/int8_matmul.py`) makes its large stride-1 convs run K4.
+
+`encoder_reuse > 1`, LoRA and `output_transport="device"` raise
+NotImplementedError naming their ROADMAP Queue 1 item; `generate_tracks`
+is not ported yet. The model runs on `device` ("cuda" by default; "cpu"
+only when asked).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 import time
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +46,10 @@ from jen1_tpu_torch.conditioning.conditioners import (
     assemble_conditioning,
     create_multi_conditioner,
 )
-from jen1_tpu_torch.config import ROADMAP_TRAINING, ROADMAP_WEIGHTS, Config, not_ported
-from jen1_tpu_torch.data.audio_io import convert_audio
+from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager, has_checkpoints
+from jen1_tpu_torch.config import ROADMAP_TRAINING, Config, not_ported
+from jen1_tpu_torch.data.audio_io import convert_audio, write_wav
+from jen1_tpu_torch.data.flac_write import write_flac
 from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
 from jen1_tpu_torch.models.unet import unet_from_model_config
@@ -45,12 +57,31 @@ from jen1_tpu_torch.ops.conv import fp32_precision
 from jen1_tpu_torch.ops.initializers import init_module
 
 TASKS = ("text_guided", "music_inpaint", "music_cont")
+REFERENCE_SUFFIXES = (".pth", ".pt", ".bin")
+# the FiLM mapping head runs in fp32 before the compute-dtype cast
+BF16_KEEP = ("to_time", "to_features", "to_mapping")
 ENCODE_MODES = ("chunked", "whole")
 DECODE_MODES = ("chunked", "chunked_bf16", "whole")
 
 
 def _warn(msg: str) -> None:
     warnings.warn(f"jen1_tpu_torch: {msg}", UserWarning, stacklevel=3)
+
+
+def cast_weights_bf16(model: torch.nn.Module) -> List[str]:
+    """bf16 storage for the UNet's matrix weights; returns the names cast
+    (jen1_tpu/api/generation.py:46-78). Floating parameters with ndim >= 2
+    become bf16, except the FiLM mapping head's (`BF16_KEEP`), which run in
+    fp32; vectors (biases, norm scales, Fourier weights) stay fp32. Every
+    module casts its weight to the activation dtype at use, so under bf16
+    compute the outputs equal fp32 storage's bit for bit while the weight
+    bytes halve."""
+    cast = []
+    for name, p in model.named_parameters():
+        if p.ndim >= 2 and p.is_floating_point() and not any(k in name for k in BF16_KEEP):
+            p.data = p.data.to(torch.bfloat16)
+            cast.append(name)
+    return cast
 
 
 def resolve_device(device) -> torch.device:
@@ -90,12 +121,19 @@ class Jen1:
         *,
         device="cuda",
     ):
-        if ckpt_path is not None:
-            raise not_ported("checkpoint loading (ckpt_path)", ROADMAP_WEIGHTS)
-        if use_ema_params or weights_dtype not in (None, "float32"):
-            raise not_ported("use_ema_params and weights_dtype='bfloat16'", ROADMAP_WEIGHTS)
         if lora_path is not None or lora_scale is not None:
             raise not_ported("LoRA adapters (lora_path, lora_scale)", ROADMAP_TRAINING)
+        if weights_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"weights_dtype must be None, 'float32' or 'bfloat16', "
+                             f"got {weights_dtype!r}")
+        is_reference = ckpt_path is not None and str(ckpt_path).endswith(REFERENCE_SUFFIXES)
+        if ckpt_path is not None and not is_reference and not has_checkpoints(ckpt_path):
+            raise ValueError(
+                f"{ckpt_path!r} is not a checkpoint jen1_tpu_torch reads: give a checkpoint "
+                "directory of this package (<dir>/<step>/state.pt and meta.json, written by "
+                "jen1_tpu_torch.ckpt.checkpoint.CheckpointManager) or a reference JEN-1 "
+                "PyTorch file (.pth, .pt or .bin). JAX (Orbax) run directories are not "
+                "readable here.")
         self.device = resolve_device(device)
         self.sample_rate = sample_rate
         self.config = config or Config()
@@ -104,25 +142,40 @@ class Jen1:
         self.input_concat_ids = tuple(input_concat_ids)
         seed = self.config.seed
 
+        # the reference ties the 1x1 conv before and after each Transformer1d
+        # and trained on the segmented latent pipeline (generation.py:131-152);
+        # switched on in a copy, so that the caller's config stays as it was
+        if is_reference:
+            self.config = copy.deepcopy(self.config)
+            if not self.config.model_config.tie_transformer_projections:
+                _warn("reference .pth checkpoint requires tie_transformer_projections=True; "
+                      "enabling it.")
+                self.config.model_config = dataclasses.replace(
+                    self.config.model_config, tie_transformer_projections=True)
+            if not self.config.codec_segmented_latents:
+                _warn("reference .pth checkpoint was trained on the segmented (per-1s "
+                      "volume-normalized) latent pipeline; enabling codec_segmented_latents.")
+                self.config.codec_segmented_latents = True
+
         def gen(offset: int) -> torch.Generator:
             return torch.Generator(device=self.device).manual_seed(seed + offset)
 
         if conditioner is None:
             t5c = self.config.conditioner_config.t5_config
-            if t5c.t5_model_name != "tiny-test":
-                _warn("the T5 text encoder is RANDOM-initialized; prompts will not "
-                      "steer generation.")
+            if t5c.weights_path is None and t5c.t5_model_name != "tiny-test":
+                _warn("T5 conditioner has no weights_path: the text encoder is "
+                      "RANDOM-initialized and prompts will not steer generation. Set "
+                      "config.conditioner_config.t5_config.weights_path to a FLAN-T5 "
+                      "encoder state dict for real inference.")
             conditioner = create_multi_conditioner(
                 self.config.conditioner_config, device=self.device, generator=gen(1)
             )
         self.conditioner = conditioner
         if codec is None:
-            from jen1_tpu_torch.codec.model import EncodecModel, encodec_48khz_config
+            from jen1_tpu_torch.codec.model import encodec_48khz_config, make_codec
 
-            _warn("the EnCodec codec is RANDOM-initialized, so decoded audio "
-                  "will be noise.")
-            codec = EncodecModel(encodec_48khz_config(), device=self.device,
-                                 generator=gen(2))
+            codec = make_codec(self.config.codec_weights_path, encodec_48khz_config(),
+                               device=self.device, generator=gen(2))
         self.codec = codec
         self.compute_dtype = (
             torch.bfloat16 if self.config.model_config.dtype == "bfloat16" else torch.float32
@@ -130,6 +183,10 @@ class Jen1:
         with torch.device(self.device):
             self.model = unet_from_model_config(self.config.model_config).eval()
         init_module(self.model, gen(0))
+        if ckpt_path is not None:
+            self._load_weights(ckpt_path, is_reference, use_ema_params)
+        if weights_dtype == "bfloat16":
+            cast_weights_bf16(self.model)
         self.diffusion = create_variational_diffusion(
             self.config.diffusion_config.variational_diffusion
         )
@@ -139,6 +196,31 @@ class Jen1:
         # walls: prep / encode / conditioner / assemble / sampler / decode /
         # fetch.
         self.last_timings: Dict[str, float] = {}
+
+    @torch.no_grad()
+    def _load_weights(self, ckpt_path: str, is_reference: bool, use_ema_params: bool) -> None:
+        """The UNet's weights from `ckpt_path` (jen1_tpu/api/generation.py:
+        221-267): a reference file, or the latest step of a checkpoint
+        directory, its `params` or, with use_ema_params, its `ema_params`."""
+        if is_reference:
+            from jen1_tpu_torch.ckpt.torch_import import load_reference_checkpoint
+
+            load_reference_checkpoint(ckpt_path, self.model, self.config.model_config)
+            return
+        state, _ = CheckpointManager(ckpt_path).restore()
+        prefix = "ema_params/" if use_ema_params else "params/"
+        if use_ema_params and not any(k.startswith(prefix) for k in state):
+            raise ValueError("use_ema_params=True but the checkpoint has no ema_params "
+                             "(train with config.use_ema=True)")
+        params = dict(self.model.named_parameters())
+        saved = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        if set(saved) != set(params):
+            raise ValueError(
+                f"{ckpt_path}: the checkpoint's {prefix[:-1]} do not fit this model "
+                f"(missing {sorted(set(params) - set(saved))[:4]}, unexpected "
+                f"{sorted(set(saved) - set(params))[:4]})")
+        for name, p in params.items():
+            p.copy_(saved[name])
 
     def _get_gdm(self, steps: int):
         """The GDM with `steps` sampling steps, built once per count
@@ -382,3 +464,72 @@ class Jen1:
         out = audio.cpu().numpy().transpose(0, 2, 1)  # (B, ch, T)
         mark("fetch")
         return out
+
+    def generate_long(self, prompt, total_seconds: float, **kw) -> np.ndarray:
+        """A clip of `total_seconds` from chained windows, (B, channels,
+        total_samples) (jen1_tpu/api/generation.py:687-724): the
+        concatenated chunks of `generate_long_stream`, which takes the same
+        keyword arguments."""
+        return np.concatenate(list(self.generate_long_stream(prompt, total_seconds, **kw)),
+                              axis=-1)
+
+    def generate_long_stream(self, prompt, total_seconds: float, *,
+                             window_seconds: float = 30.0, context_seconds: float = 10.0,
+                             fade_seconds: float = 0.05, seed: int = -1, steps: int = 100,
+                             batch_size: int = 1, use_gdm: bool = False,
+                             sampler_mode: str = "scan", **gen_kw) -> Iterator[np.ndarray]:
+        """Long-form output as a stream (jen1_tpu/api/generation.py:726-790).
+        The first window is text_guided; each next one is `music_cont` on
+        the last `context_seconds` of the audio so far, extending it by
+        window_seconds - context_seconds, with seed + window index; window
+        boundaries are joined by a linear crossfade of `fade_seconds`.
+        Yields final (B, channels, n) float32 chunks as each window ends, so
+        audio can be delivered after the first window: a window's fade
+        region is held back until the next window has blended into it (or
+        the stream ends), so the chunks concatenate exactly to
+        `generate_long`'s output. Extra keyword arguments (decode_mode,
+        encode_mode, ...) pass to every generate() call."""
+        if context_seconds >= window_seconds:
+            raise ValueError(f"context_seconds ({context_seconds}) must be < window_seconds "
+                             f"({window_seconds})")
+        seed = seed if seed != -1 else int(np.random.randint(0, 2**31 - 1))
+        sr = self.sample_rate
+        ctx_len = int(context_seconds * sr)
+        fade = max(1, int(fade_seconds * sr))
+        total = int(total_seconds * sr)
+        common = dict(steps=steps, batch_size=batch_size, seconds=window_seconds,
+                      use_gdm=use_gdm, sampler_mode=sampler_mode, **gen_kw)
+        audio = self.generate(prompt, seed=seed, **common)  # (B, ch, T)
+        emitted = 0  # samples yielded so far
+        widx = 0
+        while True:
+            done = audio.shape[-1] >= total
+            # every sample is final except the fade region the next window
+            # blends into
+            upto = min(audio.shape[-1] if done else audio.shape[-1] - fade, total)
+            if upto > emitted:
+                yield audio[..., emitted:upto]
+                emitted = upto
+            if done or emitted >= total:
+                return
+            widx += 1
+            ctx = audio[..., -ctx_len:].transpose(0, 2, 1)  # (B, T, ch)
+            out = self.generate(prompt, seed=seed + widx, task="music_cont", init_audio=ctx,
+                                init_audio_sr=sr, **common)  # the first ctx_len are context
+            new_tail = out[..., ctx_len - fade:]
+            ramp = np.linspace(0.0, 1.0, fade, dtype=np.float32)
+            head = audio[..., -fade:] * (1.0 - ramp) + new_tail[..., :fade] * ramp
+            audio = np.concatenate([audio[..., :-fade], head, new_tail[..., fade:]], axis=-1)
+
+
+def save_audio(audio, file_path: str, sample_rate: int = 48_000) -> None:
+    """Write (B, ch, T) (example 0) or (ch, T) float audio as 16-bit WAV, or
+    as lossless 16-bit FLAC when file_path ends in .flac
+    (jen1_tpu/api/generation.py:941-955)."""
+    audio = np.asarray(audio, np.float32)
+    if audio.ndim == 3:
+        audio = audio[0]
+    if file_path.lower().endswith(".flac"):
+        write_flac(file_path, audio.T, sample_rate)
+    else:
+        write_wav(file_path, audio.T, sample_rate)

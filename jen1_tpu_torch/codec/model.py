@@ -18,8 +18,10 @@ segmentation (port of jen1_tpu/codec/model.py).
                                   decoder call and triangular overlap-add,
                                   optionally with a cached bf16 decoder
 Layout: audio (B, T, channels), latent (B, F, dimension), channels-last as in
-the JAX package. Weights are random from a seeded generator or loaded
-through `ckpt/from_jax.py::load_encodec`. Every entry point runs without
+the JAX package. Weights are random from a seeded generator, loaded from a
+local torch EnCodec state dict (`make_codec`, `convert_torch_encodec`:
+facebookresearch or HF layout) or from a JAX tree
+(`ckpt/from_jax.py::load_encodec`). Every entry point runs without
 autograd and with fp32 products in full fp32 (`fp32_precision`).
 """
 
@@ -28,7 +30,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+import warnings
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -265,3 +270,147 @@ class EncodecModel(nn.Module):
         z = self.encoder(chunks)[:, :chunk_frames].reshape(b, n, chunk_frames, -1)
         out = _linear_overlap_add([z[:, i] for i in range(n)], hop_frames)[:, :f]
         return self.quantizer.quantize_latent(out) if quantize else out
+
+
+# ----------------------------------------------------------------- convert
+
+
+def make_codec(weights_path: Optional[str] = None, config: Optional[EncodecConfig] = None,
+               *, device="cuda", generator: Optional[torch.Generator] = None
+               ) -> EncodecModel:
+    """The 48 kHz codec on `device`, with the torch state dict at
+    `weights_path` loaded, or random from `generator` with a warning: a
+    random codec gives noise latents and audio
+    (jen1_tpu/codec/model.py:443-468)."""
+    config = config or encodec_48khz_config()
+    codec = EncodecModel(config, device=device, generator=generator)
+    if weights_path is not None:
+        from jen1_tpu_torch.ckpt.from_jax import load_encodec
+
+        load_encodec(codec, convert_torch_encodec(load_torch_encodec_state_dict(weights_path),
+                                                  config))
+    else:
+        warnings.warn(
+            "jen1_tpu_torch: no codec weights configured for inference: the EnCodec "
+            "codec is RANDOM-initialized, so latents and audio will be noise. Set "
+            "config.codec_weights_path to the pretrained EnCodec-48k state_dict.",
+            UserWarning, stacklevel=2)
+    return codec.eval()
+
+
+def load_torch_encodec_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A local EnCodec state dict (.pt/.pth/.bin) in the facebookresearch/
+    encodec layout or the HF `transformers` EncodecModel layout, detected
+    and remapped to the former (codec/hf_import.py). Torch >= 2.1 weight
+    norm's `parametrizations.weight.original0/1` become `weight_g/weight_v`."""
+    from jen1_tpu_torch.ckpt.checkpoint import load_torch_file
+    from jen1_tpu_torch.codec.hf_import import hf_encodec_to_fb_state_dict, \
+        is_hf_encodec_state_dict
+
+    obj = load_torch_file(path, unwrap=True)
+    if is_hf_encodec_state_dict(obj):
+        return hf_encodec_to_fb_state_dict(obj)
+    return {k.replace(".parametrizations.weight.original0", ".weight_g")
+             .replace(".parametrizations.weight.original1", ".weight_v"): v
+            for k, v in obj.items()}
+
+
+class _RecordingDict:
+    """Read-through mapping that records the keys a conversion read, so
+    that every checkpoint key can be accounted for."""
+
+    def __init__(self, d):
+        self._d = dict(d)
+        self.consumed = set()
+
+    def __contains__(self, key):
+        return key in self._d
+
+    def __getitem__(self, key):
+        self.consumed.add(key)
+        return self._d[key]
+
+    def keys(self):
+        return self._d.keys()
+
+
+def convert_torch_encodec(state_dict, config: EncodecConfig) -> dict:
+    """The facebookresearch/encodec torch state dict as the JAX package's
+    codec parameters ({"encoder", "decoder", "codebooks"} of numpy arrays,
+    jen1_tpu/codec/model.py:495-668), which `ckpt/from_jax.py::load_encodec`
+    loads into the port's codec. Weight-normalized convs (weight_g/weight_v)
+    are fused into plain kernels. Every checkpoint key must be read or be a
+    codebook buffer inference ignores (inited, cluster_size, embed_avg),
+    else ValueError."""
+    if not isinstance(state_dict, _RecordingDict):
+        state_dict = _RecordingDict(state_dict)
+    sd = state_dict
+
+    def arr(t) -> np.ndarray:
+        if hasattr(t, "detach"):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t, dtype=np.float32)
+
+    def fused(prefix: str) -> np.ndarray:
+        """weight_norm(dim=0): g * v / ||v|| over all but the first axis."""
+        if f"{prefix}.weight_v" in sd:
+            v, g = arr(sd[f"{prefix}.weight_v"]), arr(sd[f"{prefix}.weight_g"])
+            norm = np.sqrt((v**2).sum(axis=(1, 2), keepdims=True))
+            return g * v / np.maximum(norm, 1e-12)
+        return arr(sd[f"{prefix}.weight"])
+
+    def with_norm(p: dict, prefix: str) -> dict:
+        if f"{prefix}.norm.weight" in sd:
+            p["norm"] = {"scale": arr(sd[f"{prefix}.norm.weight"]),
+                         "bias": arr(sd[f"{prefix}.norm.bias"])}
+        return p
+
+    def sconv(prefix: str) -> dict:
+        # torch conv weight (Cout, Cin, K) -> (K, Cin, Cout)
+        pre = f"{prefix}.conv"
+        return with_norm({"kernel": fused(f"{pre}.conv").transpose(2, 1, 0),
+                          "bias": arr(sd[f"{pre}.conv.bias"])}, pre)
+
+    def sconvtr(prefix: str) -> dict:
+        # torch convtr weight (Cin, Cout, K) -> (K, Cin, Cout); weight_norm
+        # reduces over (Cout, K) per input channel
+        pre = f"{prefix}.convtr"
+        return with_norm({"kernel": fused(f"{pre}.convtr").transpose(2, 0, 1),
+                          "bias": arr(sd[f"{pre}.convtr.bias"])}, pre)
+
+    def lstm(prefix: str) -> dict:
+        p = {}
+        for layer in range(2):
+            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh")):
+                p[f"l{layer}_{ours}"] = arr(sd[f"{prefix}.lstm.{theirs}_l{layer}"]).T
+            for ours, theirs in (("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                p[f"l{layer}_{ours}"] = arr(sd[f"{prefix}.lstm.{theirs}_l{layer}"])
+        return p
+
+    def resblock(prefix: str) -> dict:
+        return {"conv1": sconv(f"{prefix}.block.1"), "conv2": sconv(f"{prefix}.block.3"),
+                "shortcut": sconv(f"{prefix}.shortcut")}
+
+    n = len(config.ratios)
+    enc = {"conv_in": sconv("encoder.model.0")}
+    for si in range(n):
+        enc[f"stage{si}_res0"] = resblock(f"encoder.model.{1 + 3 * si}")
+        enc[f"stage{si}_down"] = sconv(f"encoder.model.{3 + 3 * si}")
+    enc["lstm"] = lstm(f"encoder.model.{1 + 3 * n}")
+    enc["conv_out"] = sconv(f"encoder.model.{3 + 3 * n}")
+    dec = {"conv_in": sconv("decoder.model.0"), "lstm": lstm("decoder.model.1")}
+    for si in range(n):
+        dec[f"stage{si}_up"] = sconvtr(f"decoder.model.{3 + 3 * si}")
+        dec[f"stage{si}_res0"] = resblock(f"decoder.model.{4 + 3 * si}")
+    dec["conv_out"] = sconv(f"decoder.model.{3 + 3 * n}")
+    codebooks = np.stack([arr(sd[f"quantizer.vq.layers.{i}._codebook.embed"])
+                          for i in range(config.n_q)])
+    from jen1_tpu_torch.codec.torch_keys import expected_torch_keys
+
+    _, ignorable = expected_torch_keys(n, config.n_q)
+    leftovers = set(sd.keys()) - sd.consumed - ignorable
+    if leftovers:
+        raise ValueError(
+            f"convert_torch_encodec left {len(leftovers)} checkpoint key(s) unread "
+            f"(layout mismatch?): {sorted(leftovers)[:8]}")
+    return {"encoder": enc, "decoder": dec, "codebooks": codebooks}

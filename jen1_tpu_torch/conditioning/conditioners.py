@@ -1,8 +1,9 @@
 """Conditioners: metadata -> (embedding [B, L, D], mask [B, L]) (port of
 jen1_tpu/conditioning/conditioners.py).
 
-The T5 conditioner and the multi-conditioner dispatch are ported; the int
-and number conditioners and loading pretrained T5 weights are not yet.
+The T5 conditioner, with pretrained weights from a local HF state dict
+(`weights_path`), and the multi-conditioner dispatch are ported; the int
+and number conditioners are not yet.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from jen1_tpu_torch.conditioning.t5 import T5Encoder, T5EncoderConfig
+from jen1_tpu_torch.ckpt.checkpoint import load_torch_file
+from jen1_tpu_torch.conditioning.t5 import T5Encoder, T5EncoderConfig, convert_hf_t5_encoder
 from jen1_tpu_torch.conditioning.tokenizer import ByteTokenizer, get_tokenizer
 from jen1_tpu_torch.ops.initializers import init_module
 from jen1_tpu_torch.ops.linear import Linear
@@ -27,6 +29,7 @@ class T5Conditioner(nn.Module):
         t5_model_name: str = "t5-base",
         max_length: int = 128,
         project_out: bool = False,
+        weights_path: Optional[str] = None,
         *,
         device="cuda",
         generator: Optional[torch.Generator] = None,
@@ -50,7 +53,20 @@ class T5Conditioner(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         init_module(self, generator)
+        if weights_path is not None:
+            self._load_encoder(load_torch_file(weights_path, unwrap=True), cfg)
         self.device = torch.device(device)
+
+    @torch.no_grad()
+    def _load_encoder(self, state_dict, cfg: T5EncoderConfig) -> None:
+        """The encoder's weights from an HF state dict; the embedding takes
+        the checkpoint's vocabulary size, as the JAX conditioner's does."""
+        sd = convert_hf_t5_encoder(state_dict, cfg)
+        emb = sd["embedding"]
+        if emb.shape != self.encoder.embedding.shape:
+            self.encoder.embedding = nn.Parameter(
+                torch.empty(emb.shape, device=self.encoder.embedding.device))
+        self.encoder.load_state_dict(sd)
 
     @torch.no_grad()
     def forward(self, texts: List[str]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -104,6 +120,7 @@ def create_multi_conditioner(config, *, device="cuda",
             t5_model_name=c.t5_model_name,
             max_length=c.max_length,
             project_out=c.project_out,
+            weights_path=c.weights_path,
             device=device,
             generator=generator,
         )

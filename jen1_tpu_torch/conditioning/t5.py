@@ -4,13 +4,14 @@ Encoder only, inference mode: RMSNorm with fp32 statistics, bidirectional
 relative-position buckets whose bias is computed in block 0 and reused by
 every later block, no 1/sqrt(d_kv) query scaling, and a gated-GELU (tanh)
 or ReLU FFN. Bias-free projections are initialised normal(1.0), as in the
-JAX package.
+JAX package. `convert_hf_t5_encoder` maps a local HuggingFace
+`T5EncoderModel` state dict onto `T5Encoder`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -213,3 +214,34 @@ class T5Encoder(nn.Module):
         for i in range(self.cfg.num_layers):
             x, position_bias = getattr(self, f"block{i}")(x, attention_mask, position_bias)
         return self.final_ln(x)
+
+
+def convert_hf_t5_encoder(state_dict: Dict[str, Any],
+                          cfg: T5EncoderConfig) -> Dict[str, torch.Tensor]:
+    """An HF torch `T5EncoderModel.state_dict()` (`shared.weight` or
+    `encoder.embed_tokens.weight`, `encoder.block.{i}.layer.{0,1}...`) as a
+    state dict of `T5Encoder` (jen1_tpu/conditioning/t5.py:263-316). Both
+    packages keep torch's (out, in) projection layout, so no leaf is
+    transposed; keys the encoder does not read are ignored."""
+
+    def get(*names) -> torch.Tensor:
+        for n in names:
+            if n in state_dict:
+                return torch.as_tensor(state_dict[n]).float()
+        raise KeyError(f"none of {names} in state dict")
+
+    out = {"embedding": get("shared.weight", "encoder.embed_tokens.weight")}
+    ffn = ("wi_0", "wi_1", "wo") if cfg.feed_forward_proj == "gated-gelu" else ("wi", "wo")
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        for name in ("q", "k", "v", "o"):
+            out[f"block{i}.attn.{name}.weight"] = get(f"{pre}.0.SelfAttention.{name}.weight")
+        if i == 0:
+            out["block0.attn.relative_attention_bias"] = get(
+                f"{pre}.0.SelfAttention.relative_attention_bias.weight")
+        for name in ffn:
+            out[f"block{i}.ffn.{name}.weight"] = get(f"{pre}.1.DenseReluDense.{name}.weight")
+        out[f"block{i}.ln_attn.weight"] = get(f"{pre}.0.layer_norm.weight")
+        out[f"block{i}.ln_ffn.weight"] = get(f"{pre}.1.layer_norm.weight")
+    out["final_ln.weight"] = get("encoder.final_layer_norm.weight")
+    return out

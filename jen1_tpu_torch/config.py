@@ -6,7 +6,9 @@ by the JAX `Config.to_json()` loads; keys that neither package knows are
 ignored, as there) and the `longform_config()` and `tiny_test_config()`
 presets. Fields whose modules the port does not have yet keep their JAX
 defaults; any other value raises NotImplementedError naming the ROADMAP
-Queue 1 item that ports them (`UNPORTED`). `compile_effort`, `use_fp16`,
+Queue 1 item that ports them (`UNPORTED`). `weights_path` and
+`codec_weights_path` name local torch state dicts that the T5 conditioner
+and `Jen1`'s codec load. `compile_effort`, `use_fp16`,
 `is_finetuning` and `mesh_axis_names` are carried for the round trip and
 change nothing here (XLA's effort knob; read by no JAX module; the mesh is
 refused by the trainer).
@@ -147,10 +149,7 @@ class T5Config:
     t5_model_name: str = "google/flan-t5-large"
     max_length: int = 128
     project_out: bool = True
-    weights_path: Optional[str] = None
-
-    def __post_init__(self):
-        _refuse_unported(self, "conditioner_config.t5_config")
+    weights_path: Optional[str] = None  # a local HF T5EncoderModel state dict
 
 
 @dataclass
@@ -213,6 +212,7 @@ class Config:
 
     save_dir: str = ""
     log_dir: str = ""
+    # a local EnCodec-48k state dict, facebookresearch or HF layout
     codec_weights_path: Optional[str] = None
     # the reference's latent pipeline: per-1 s-segment volume normalisation
     # and RVQ codes concatenated across the 1 %-overlapping segments
@@ -236,9 +236,6 @@ class Config:
     conditioner_config: ConditionerConfig = field(default_factory=ConditionerConfig)
     parallel_config: ParallelConfig = field(default_factory=ParallelConfig)
     lora_config: LoraConfig = field(default_factory=LoraConfig)
-
-    def __post_init__(self):
-        _refuse_unported(self, "")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -272,7 +269,6 @@ class Config:
 
 
 # ROADMAP Queue 1 items, by title, that port what the port refuses today
-ROADMAP_WEIGHTS = "ROADMAP Queue 1, 'Checkpoints and local weights'"
 ROADMAP_TRAINING = "ROADMAP Queue 1, 'Rest of training'"
 ROADMAP_MESH = "ROADMAP Queue 1, 'parallel/mesh.py on torch.distributed'"
 _MODEL_FEATURES = "ROADMAP Queue 1, 'Remaining model, conditioning and eval features'"
@@ -291,10 +287,8 @@ UNPORTED = {
         "stft_hop_length": _MODEL_FEATURES,
         "remat": "ROADMAP Queue 1, 'UNet encoder cache and encoder_reuse'",
     },
-    "T5Config": {"weights_path": ROADMAP_WEIGHTS},
     "ConditionerConfig": {"int_config": _MODEL_FEATURES, "number_config": _MODEL_FEATURES},
     "LoraConfig": {name: ROADMAP_TRAINING for name in ("alpha", "targets", "base_ckpt")},
-    "Config": {"codec_weights_path": ROADMAP_WEIGHTS},
 }
 
 

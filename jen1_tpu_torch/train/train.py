@@ -1,7 +1,7 @@
 """Training entry point (port of jen1_tpu/train/train.py).
 
     python -m jen1_tpu_torch.train.train --config cfg.json --latents-dir d \
-        --max-steps N [--device cpu] [--log-dir logs]
+        --max-steps N [--device cpu] [--log-dir logs] [--save-dir ckpts]
 
 Trains `UnifiedMultiTaskTrainer` on one device ("cuda" unless asked
 otherwise) over precomputed latents (<dir>/<name>.npy, (frames, C)), with
@@ -10,10 +10,18 @@ weights random from `config.seed`. Step `i` draws its device randoms from
 `np.random.default_rng((seed, i))`, the host stream of the JAX trainer.
 Metrics go to <log_dir>/metrics.jsonl.
 
+With a save_dir, every `eval_interval` steps whose validation loss beats
+the best so far save the whole train state (`ckpt/checkpoint.py`, the 3
+lowest-loss steps kept, `best_val` in the metadata). A run whose save_dir
+holds a checkpoint resumes from its latest step: the state and `best_val`
+are restored and the loader skips the batches already taken, so, since
+every draw is a function of (seed, step), the resumed run replays the
+unbroken one. `max_steps` counts the steps of this invocation.
+
 Options of the JAX CLI whose modules are not ported yet fail loudly, naming
 the ROADMAP item: a mesh (dp/tp/sp/fsdp), LoRA, multi-host `--distributed`,
-`--profile`, checkpointing (a non-empty save_dir) and wav input
-(dataset_dir, which needs MusicDataset and audio I/O).
+`--profile` and wav input (dataset_dir, which needs MusicDataset and audio
+I/O).
 """
 
 from __future__ import annotations
@@ -26,10 +34,9 @@ import numpy as np
 import torch
 
 from jen1_tpu_torch.api.generation import resolve_device
+from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
 from jen1_tpu_torch.conditioning.conditioners import create_multi_conditioner
-from jen1_tpu_torch.config import (
-    ROADMAP_MESH, ROADMAP_TRAINING, ROADMAP_WEIGHTS, Config, not_ported,
-)
+from jen1_tpu_torch.config import ROADMAP_MESH, ROADMAP_TRAINING, Config, not_ported
 from jen1_tpu_torch.data.dataset import LatentDataset, make_dataloader, train_test_split
 from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
@@ -47,8 +54,6 @@ def check_ported(config: Config) -> None:
         raise not_ported("a device mesh (dp/tp/sp/fsdp)", ROADMAP_MESH)
     if config.lora_config.rank > 0:
         raise not_ported("LoRA training", ROADMAP_TRAINING)
-    if config.save_dir:
-        raise not_ported("checkpointing (save_dir)", ROADMAP_WEIGHTS)
 
 
 def build_trainer(config: Config, conditioner=None, *, device="cuda") -> UnifiedMultiTaskTrainer:
@@ -96,19 +101,31 @@ def run(config: Config, max_steps: Optional[int] = None, *, device="cuda"):
 
     trainer = build_trainer(config, device=device)
     state = trainer.init_state()
+    ckpt = CheckpointManager(config.save_dir) if config.save_dir else None
+    start_step, best_val = 0, float("inf")
+    if ckpt is not None and ckpt.latest_step() is not None:
+        saved, meta = ckpt.restore(map_location=trainer.device)
+        state = trainer.load_state_dict(saved)
+        start_step = state.step
+        best_val = float(meta.get("best_val", float("inf")))
+        logger.info(f"resumed from step {start_step} (best_val {best_val:.4f})")
     lr_schedule = make_lr_schedule(config.optimizer_config)
+    # one batch per train_step and state.step counts train_steps: skipping
+    # start_step batches puts the loader where the saved run was
     train_iter = make_dataloader(train_ds, dc.batch_size, shuffle=dc.shuffle,
-                                 seed=config.seed, epochs=config.num_epoch)
+                                 seed=config.seed, epochs=config.num_epoch,
+                                 skip_batches=start_step)
     try:
         for step_idx, (latents, metadata) in enumerate(train_iter):
+            gstep = start_step + step_idx
             batch = trainer.prepare_batch(latents, metadata)
             t0 = time.time()
             state, m = trainer.train_step(
-                state, batch, step_generator(trainer.device, config.seed, step_idx),
-                np.random.default_rng((config.seed, step_idx)),
+                state, batch, step_generator(trainer.device, config.seed, gstep),
+                np.random.default_rng((config.seed, gstep)),
             )
             step = state.step
-            if step_idx % max(1, config.grad_accum_every) == 0:
+            if gstep % max(1, config.grad_accum_every) == 0:
                 scalars = {k: float(v) for k, v in m.items()}
                 scalars["step_time"] = time.time() - t0
                 scalars["lr"] = float(lr_schedule(step // config.grad_accum_every))
@@ -118,7 +135,15 @@ def run(config: Config, max_steps: Optional[int] = None, *, device="cuda"):
             if config.eval_interval and step % config.eval_interval == 0 and len(val_ds):
                 val_iter = make_dataloader(val_ds, dc.batch_size, shuffle=False,
                                            epochs=1, prefetch=0)
-                metrics_logger.log(step, trainer.evaluate(state, val_iter, config.seed))
+                val_metrics = trainer.evaluate(state, val_iter, config.seed)
+                metrics_logger.log(step, val_metrics)
+                val_loss = val_metrics.get("loss/val", float("inf"))
+                if ckpt is not None and val_loss < best_val:
+                    best_val = val_loss
+                    ckpt.save(step, trainer.state_dict(state), loss=val_loss,
+                              learning_rate=config.optimizer_config.lr,
+                              extra_meta={"best_val": best_val})
+                    logger.info(f"saved best checkpoint at step {step} (val {val_loss:.4f})")
             if max_steps is not None and step_idx + 1 >= max_steps:
                 break
     finally:

@@ -23,7 +23,13 @@ returns fp32 to the loss. The JAX trainer hands its model an fp32 x_t (its
 q_sample promotes the bf16 latents) and the flax modules cast to their
 compute dtype inside; in fp32 the two agree (tests/test_torch_train.py).
 
-Not ported yet: the mesh (dp/tp/fsdp/sp), LoRA, checkpointing.
+Checkpoints. `state_dict(state)` flattens the parameters, the optimizer
+state (fused AdamW, or the chain with its MultiSteps accumulator), the step
+and the EMA into one {name: tensor} dict, the format of
+`ckpt/checkpoint.py`; `load_state_dict` restores it onto the trainer's
+device.
+
+Not ported yet: the mesh (dp/tp/fsdp/sp), LoRA.
 """
 
 from __future__ import annotations
@@ -122,6 +128,58 @@ class UnifiedMultiTaskTrainer:
         opt_state = fused_adamw_init(params) if self._use_fused else self.optimizer.init(params)
         ema = [p.detach().clone() for p in params] if self.use_ema else None
         return TrainState(opt_state=opt_state, step=0, ema_params=ema)
+
+    def _names(self) -> List[str]:
+        return [name for name, _ in self.model.named_parameters()]
+
+    def state_dict(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """`state` and the model's parameters as one flat {name: tensor}
+        dict: params/<name>; ema_params/<name> with an EMA; opt/<field>/<name>
+        for each per-parameter list of the optimizer state (mu, nu and the
+        MultiSteps `acc`) and opt/<field> for its counters; step. Tensors
+        are the live ones, not copies."""
+        names = self._names()
+        out = {f"params/{n}": p.detach() for n, p in zip(names, self.params)}
+        if state.ema_params is not None:
+            out.update({f"ema_params/{n}": t for n, t in zip(names, state.ema_params)})
+        for f in dataclasses.fields(state.opt_state):
+            value = getattr(state.opt_state, f.name)
+            if isinstance(value, list):
+                out.update({f"opt/{f.name}/{n}": t for n, t in zip(names, value)})
+            elif value is not None:
+                out[f"opt/{f.name}"] = torch.tensor(int(value), dtype=torch.int64)
+        out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, flat: Dict[str, torch.Tensor]) -> TrainState:
+        """The inverse of `state_dict`: copies the saved parameters into the
+        model and returns the TrainState, every tensor on the trainer's
+        device. The names must be exactly those `state_dict` gives for this
+        trainer's model and optimizer."""
+        state = self.init_state()
+        want = set(self.state_dict(state))
+        if set(flat) != want:
+            missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
+            raise ValueError(f"checkpoint does not fit this trainer: missing {missing[:4]}, "
+                             f"unexpected {extra[:4]}")
+        names = self._names()
+
+        def copy_list(prefix: str, dst: List[torch.Tensor]) -> None:
+            for n, t in zip(names, dst):
+                t.copy_(flat[f"{prefix}/{n}"])
+
+        copy_list("params", [p.data for p in self.params])
+        if state.ema_params is not None:
+            copy_list("ema_params", state.ema_params)
+        for f in dataclasses.fields(state.opt_state):
+            value = getattr(state.opt_state, f.name)
+            if isinstance(value, list):
+                copy_list(f"opt/{f.name}", value)
+            elif value is not None:
+                setattr(state.opt_state, f.name, int(flat[f"opt/{f.name}"]))
+        state.step = int(flat["step"])
+        return state
 
     # ----------------------------------------------------------- draws
 

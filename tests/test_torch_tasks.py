@@ -171,10 +171,7 @@ def test_generate_refusals(pair, kw, exc):
         pj.generate(PROMPT, seed=1, steps=1, seconds=1, **kw)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(ckpt_path="run/ckpts"), dict(use_ema_params=True), dict(weights_dtype="bfloat16"),
-    dict(lora_path="run/lora"),
-])
+@pytest.mark.parametrize("kw", [dict(lora_path="run/lora"), dict(lora_scale=0.5)])
 def test_unported_constructor_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, '"):
         Jen1(device="cpu", **kw)

@@ -505,7 +505,6 @@ def test_cli_trains_on_cpu(tmp_path):
     (["--tp", "2"], "mesh"),
     (["--fsdp"], "mesh"),
     (["--lora-rank", "4"], "LoRA"),
-    (["--save-dir", "ckpts"], "checkpointing"),
     (["--profile"], "--profile"),
     (["--distributed"], "multi-host"),
 ])
@@ -553,9 +552,8 @@ def test_jax_config_json_loads(tmp_path, which):
 @pytest.mark.parametrize("key,value,field", [
     ("model_config.use_snake", True, None), ("model_config.use_stft", True, None),
     ("model_config.stft_hop_length", 128, None), ("model_config.remat", True, None),
-    ("conditioner_config.t5_config.weights_path", "t5.safetensors", None),
     ("conditioner_config.int_config.max_val", 60, "conditioner_config.int_config"),
-    ("codec_weights_path", "encodec.pt", None), ("lora_config.alpha", 8.0, None),
+    ("lora_config.alpha", 8.0, None),
 ])
 def test_jax_config_with_unported_field_raises(key, value, field):
     """A JAX JSON whose unported fields leave their defaults would build
@@ -564,6 +562,52 @@ def test_jax_config_with_unported_field_raises(key, value, field):
     d = json.loads(JaxConfig().override(**{key: value}).to_json())
     with pytest.raises(NotImplementedError, match=f"{field or key}=.*ROADMAP Queue 1, '"):
         Config.from_dict(d)
+
+
+@pytest.mark.parametrize("key", ["conditioner_config.t5_config.weights_path",
+                                 "codec_weights_path"])
+def test_jax_config_weight_paths_load(tmp_path, key):
+    """A JAX JSON with a local weights file keeps the path, and the port loads
+    the file through it: the T5 conditioner (an HF state dict for the tiny
+    T5) or Jen1's codec (an EnCodec-48k state dict of the facebookresearch
+    layout, from tests/encodec_torch_mock.py)."""
+    from encodec_torch_mock import MockEncodec
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.conditioning.conditioners import create_multi_conditioner
+    from jen1_tpu_torch.conditioning.t5 import T5EncoderConfig
+    from jen1_tpu_torch.config import tiny_test_config
+    from torch_port_util import hf_t5_state_dict
+
+    path = tmp_path / "weights.pt"
+    torch.manual_seed(0)
+    if key == "codec_weights_path":
+        sd = MockEncodec().state_dict()
+        want = {"codebooks": torch.stack([sd[f"quantizer.vq.layers.{i}._codebook.embed"]
+                                          for i in range(16)])}
+    else:
+        sd = hf_t5_state_dict(0, dataclasses.replace(T5EncoderConfig.tiny_test(),
+                                                     vocab_size=259), "shared.weight")
+        want = {"encoder.embedding": sd["shared.weight"]}
+    torch.save(sd, path)
+    d = json.loads(JaxConfig().override(**{key: str(path)}).to_json())
+    jcfg = Config.from_dict(d)
+    kept = (jcfg.codec_weights_path if key == "codec_weights_path"
+            else jcfg.conditioner_config.t5_config.weights_path)
+    assert kept == str(path)
+    cfg = tiny_test_config()
+    cfg.conditioner_config = jcfg.conditioner_config
+    cfg.conditioner_config.cond_dim = cfg.model_config.context_embedding_features
+    cfg.conditioner_config.t5_config.t5_model_name = "tiny-test"
+    cfg.conditioner_config.t5_config.max_length = 6
+    cfg.codec_weights_path = jcfg.codec_weights_path
+    if key == "codec_weights_path":
+        loaded = Jen1(config=cfg, device="cpu").codec
+    else:
+        loaded = create_multi_conditioner(cfg.conditioner_config, device="cpu").conditioners[
+            "prompt"]
+    for name, value in want.items():
+        assert torch.equal(loaded.state_dict()[name], value.float()), name
 
 
 def test_config_round_trip_and_override():

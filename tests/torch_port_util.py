@@ -57,12 +57,12 @@ def random_params(shape_tree, seed: int):
     return walk(shape_tree)
 
 
-def jen1_pair(codec_config=TINY_CODEC):
+def jen1_pair(codec_config=TINY_CODEC, ckpt_path=None):
     """A jen1_tpu `Jen1` and a jen1_tpu_torch `Jen1(device="cpu")` with the
     same UNet (flash path engaged, `flash_model_configs`), T5 and codec
-    (encoder, decoder and RVQ) weights: tests/test_api.py's tiny model."""
-    import jax.numpy as jnp
-
+    (encoder, decoder and RVQ) weights: tests/test_api.py's tiny model. With
+    `ckpt_path` both load their UNet from it; else both get the same random
+    UNet weights."""
     from jen1_tpu.api.generation import Jen1 as JJen1
     from jen1_tpu.codec.model import EncodecConfig as JCodecConfig, EncodecModel as JCodec
     from jen1_tpu.conditioning import conditioners as jcond
@@ -76,26 +76,35 @@ def jen1_pair(codec_config=TINY_CODEC):
     jt5 = jcond.T5Conditioner(output_dim=mc.context_embedding_features,
                               t5_model_name="tiny-test",
                               max_length=mc.context_embedding_max_length)
-    jj = JJen1(ckpt_path=None, sample_rate=codec_config["sample_rate"], config=jcfg,
+    jj = JJen1(ckpt_path=ckpt_path, sample_rate=codec_config["sample_rate"], config=jcfg,
                codec=jcodec, conditioner=jcond.MultiConditioner({"prompt": jt5}))
-    shapes = jax.eval_shape(lambda r: jj.model.init(
-        r, jnp.zeros((1, 40, mc.in_channels)), jnp.zeros((1,)),
-        embedding=jnp.zeros((1, mc.context_embedding_max_length,
-                             mc.context_embedding_features)),
-        channels_list=[jnp.zeros((1, 40, mc.context_channels[0]))],
-    ), jax.random.PRNGKey(0))
-    params = random_params(shapes, seed=1)
-    jj._params = params  # the weights generate() samples with
+    if ckpt_path is None:
+        params = random_params(unet_shapes(jj.model, mc), seed=1)
+        jj._params = params  # the weights generate() samples with
 
     pcodec = EncodecModel(EncodecConfig(**codec_config), device="cpu")
     load_encodec(pcodec, np_tree(jcodec.params))
     pt5 = pcond.T5Conditioner(mc.context_embedding_features, "tiny-test",
                               mc.context_embedding_max_length, device="cpu")
     load(pt5, {"encoder": jt5.params["encoder"], "proj": jt5.params["proj"]})
-    pj = Jen1(sample_rate=codec_config["sample_rate"], config=pcfg, codec=pcodec.eval(),
-              conditioner=pcond.MultiConditioner({"prompt": pt5}), device="cpu")
-    load(pj.model, params)
+    pj = Jen1(ckpt_path, sample_rate=codec_config["sample_rate"], config=pcfg,
+              codec=pcodec.eval(), conditioner=pcond.MultiConditioner({"prompt": pt5}),
+              device="cpu")
+    if ckpt_path is None:
+        load(pj.model, params)
     return jj, pj
+
+
+def unet_shapes(jmodel, mc):
+    """The parameter shapes of a JAX UNet (jax.eval_shape of its init)."""
+    import jax.numpy as jnp
+
+    return jax.eval_shape(lambda r: jmodel.init(
+        r, jnp.zeros((1, 40, mc.in_channels)), jnp.zeros((1,)),
+        embedding=jnp.zeros((1, mc.context_embedding_max_length,
+                             mc.context_embedding_features)),
+        channels_list=[jnp.zeros((1, 40, mc.context_channels[0]))],
+    ), jax.random.PRNGKey(0))
 
 
 def synthetic_clip(seed: int, seconds: float, sr: int, channels: int = 2) -> np.ndarray:
@@ -106,6 +115,33 @@ def synthetic_clip(seed: int, seconds: float, sr: int, channels: int = 2) -> np.
     tones = sum(np.sin(2 * np.pi * freqs[:, i] * t[:, None] + g.uniform(0, 6.3))
                 for i in range(2))
     return (0.3 * tones + 0.05 * g.standard_normal((len(t), channels))).astype(np.float32)
+
+
+def hf_t5_state_dict(seed: int, cfg, embed_key: str):
+    """A random HF T5EncoderModel state dict for `cfg`."""
+    g = rng(seed)
+
+    def w(*shape, scale=0.3):
+        return torch.from_numpy(scale * randn(g, *shape))
+
+    inner = cfg.num_heads * cfg.d_kv
+    sd = {embed_key: w(cfg.vocab_size, cfg.d_model, scale=1.0)}
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        for n in ("q", "k", "v"):
+            sd[f"{pre}.0.SelfAttention.{n}.weight"] = w(inner, cfg.d_model)
+        sd[f"{pre}.0.SelfAttention.o.weight"] = w(cfg.d_model, inner)
+        if i == 0:
+            sd[f"{pre}.0.SelfAttention.relative_attention_bias.weight"] = w(
+                cfg.relative_attention_num_buckets, cfg.num_heads)
+        names = ("wi_0", "wi_1") if cfg.feed_forward_proj == "gated-gelu" else ("wi",)
+        for n in names:
+            sd[f"{pre}.1.DenseReluDense.{n}.weight"] = w(cfg.d_ff, cfg.d_model)
+        sd[f"{pre}.1.DenseReluDense.wo.weight"] = w(cfg.d_model, cfg.d_ff)
+        sd[f"{pre}.0.layer_norm.weight"] = 1.0 + w(cfg.d_model, scale=0.1)
+        sd[f"{pre}.1.layer_norm.weight"] = 1.0 + w(cfg.d_model, scale=0.1)
+    sd["encoder.final_layer_norm.weight"] = 1.0 + w(cfg.d_model, scale=0.1)
+    return sd
 
 
 class one_torch_thread:
