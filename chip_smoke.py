@@ -16,7 +16,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    its route (bf16: tensor cores; fp32: scalar); what a
                    dropped ragged tile, K1 with a single bf16 P or K2 with a
                    single bf16 dS would shift; K1 timed at the generation
-                   shape and N = 4500, K2/K3
+                   shape, at N = 4500 and at the serving batch (B*H 64), K2/K3
                    at the training shape, both causal values, in device time
                    (torch.profiler; CUDA events beside it), beside their plain
                    versions, their bounds (bytes / operations, and the ex2
@@ -56,13 +56,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    per window (the continuation windows' all causal);
                    save_audio to WAV (reads back as its int16 quantization)
                    and FLAC (STREAMINFO checked).
- 10. main        - Jen1(longform_config()).generate(): one warm-up request,
+ 10. small-reuse - the tiny pair's UNet forward with its encoder cache (output
+                   and every cache leaf) on the card against the CPU; DDIM and
+                   DPM-Solver++ at encoder_reuse 2 and 3, 5 and 6 steps, fp32
+                   and bf16 compute, card against CPU with the same draws,
+                   K1 launches per request as reuse_schedule gives them.
+ 11. small-serve - the tiny card Jen1 behind GenerationService and its HTTP
+                   server on 127.0.0.1: co-batching, a seeded request equal
+                   to lane 0 of generate(), /healthz, /generate (WAV, npy),
+                   /generate_long, 503 under overload, close() draining;
+                   batch_generate on 3 prompts.
+ 12. main        - Jen1(longform_config()).generate(): one warm-up request,
                    then two timed requests (100 steps, 30 s, B=1); checks
                    shapes, finiteness and K1 launches, every one on the
                    tensor-core route; then one more request under
                    torch.profiler for the device's busy share and K1's
                    device time.
- 11. tasks       - the same Jen1: music_inpaint of a seeded 30 s clip over
+ 13. tasks       - the same Jen1: music_inpaint of a seeded 30 s clip over
                    10-20 s and music_cont of its first 10 s to 30 s, 100 VDM
                    steps each after a short warm-up: walls, phase walls
                    (encode included), peak memory, K1 launches (200 each,
@@ -72,25 +82,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    continuation under torch.profiler, then the chunked
                    encode and the chunked decode each under torch.profiler
                    (their fp32 GEMM launches: the codec LSTMs' steps).
- 12. long        - the same Jen1: generate_long_stream over 70 s (three 30 s
+ 14. long        - the same Jen1: generate_long_stream over 70 s (three 30 s
                    windows, 10 s of context, 100 VDM steps each): the wall
                    to the first chunk, each window's wall and phase walls,
                    peak memory, K1 launches (600, all on the tensor-core
                    route, 400 causal); save_audio to WAV and FLAC: walls and
                    bytes.
- 13. bf16-weights- a second Jen1(longform_config(), weights_dtype="bfloat16")
+ 15. bf16-weights- a second Jen1(longform_config(), weights_dtype="bfloat16")
                    with the same seed: the UNet's weight bytes, then paired
-                   100-step 30 s requests (fp32, bf16, bf16, fp32): walls,
+                   100-step 30 s requests (fp32, bf16): walls,
                    peak memory, max|diff| (0 expected: bf16 storage under
                    bf16 compute is bit-identical).
- 14. flagship    - Jen1(Config()) with the UNet's convs quantized at the
+ 16. reuse       - the same Jen1, GDM, 30 s, 100 steps: DDIM at encoder_reuse
+                   1, 2, 2, 1 and DPM-Solver++ at 2: walls, the relative L2
+                   of each latent and audio from k = 1, K1 launches (200,
+                   151, 150: reuse_schedule's count, all tensor-core); the
+                   device busy seconds of a 10-step request at k = 1 and 2.
+ 17. serve       - the same Jen1 behind GenerationService(max_batch 4,
+                   max_wait_ms 200, 30 s, 100 DDIM steps): a 10-step warm-up
+                   batch, 6 requests at once (2 batches, 2 padded lanes), a
+                   seeded request twice, one POST /generate over HTTP: latencies,
+                   batch walls, audio-s per wall-s, phase_totals, peak
+                   memory, K1 launches, stats; the busy share of a 10-step
+                   B=4 request.
+ 18. flagship    - Jen1(Config()) with the UNet's convs quantized at the
                    default thresholds: the census, one UNet forward at
                    (2, 4500, 128) with K4, with the plain version and with
                    fp32 weights; one warm-up and two timed 100-step 30 s
                    DDIM requests (K4 launches, shapes, finiteness), one
                    request with fp32 weights, one 10-step request under
                    torch.profiler.
- 15. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
+ 19. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
                    steps, 5 timed steps, launches of K1/K2/K3 per step (all
                    on the tensor-core route), and one more step under
@@ -98,7 +120,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    the whole train state (305 M parameters, AdamW moments)
                    saved by CheckpointManager and restored into a fresh
                    trainer: bytes, walls, free disk; one more step on each,
-                   with the same draws, gives equal losses (train bars).
+                   with the same draws, gives equal losses (train bars); then
+                   a remat=True trainer takes the same state and both take two
+                   steps with the same draws: losses and gradient leaves at
+                   the train bars, walls and peak memory of every step,
+                   K1/K2/K3 8/4/4 per remat step.
 The line before the last is the `{"kernels": [...]}` record; the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -213,6 +239,25 @@ LONG_WINDOWS = 3
 # the tiny long-form: 13 s windows (520 latent frames: the level-1
 # transformer's 130 frames take the flash path), 4 s of context, 29 s
 SMALL_LONG = dict(total_seconds=29, window_seconds=13, context_seconds=4, seed=5, steps=4)
+# bf16-weights: the storages of its paired requests, in order (since the
+# serving phases joined, one pair, to keep the run under ten minutes)
+BF16_ORDER = ("fp32", "bf16")
+# encoder reuse at full width: DDIM requests at these k (k = 1 first and
+# last, to pair the walls), then DPM-Solver++ at REUSE_DPM_K
+REUSE_KS = (1, 2, 2, 1)
+REUSE_DPM_K = 2
+# the tiny reuse cases: k x S (S % k == 0 and not) x compute dtype
+SMALL_REUSE_KS = (2, 3)
+SMALL_REUSE_STEPS = (5, 6)
+# serving: GenerationService(max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS)
+# over the phase-main Jen1, GDM DDIM; SERVE_REQUESTS default-seed requests
+# at once (one full batch and one padded); K1 sees the CFG-doubled batch
+# x 8 heads
+SERVE_BATCH = 4
+SERVE_WAIT_MS = 200.0
+SERVE_REQUESTS = 6
+SERVE_BH = 2 * SERVE_BATCH * 8
+SERVE_SEED = 77
 # the tiny slice's codec: 1600 Hz, a 40-sample hop, a 2 x 16-entry RVQ
 TINY_CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2),
                   n_q=2, bins=16)
@@ -432,7 +477,10 @@ def phase_kernels(torch, clock_hz: float) -> list:
              for dt in ("bfloat16", "float32") for c in (False, True)]
     cases += [(16, n, d, dt, c) for n in (563, 1125) for d in PADDED_DS
               for dt in ("bfloat16", "float32") for c in (False, True)]
-    k1_err = 0.0
+    # the serving batch: max_batch 4, CFG-doubled, 8 heads
+    cases += [(SERVE_BH, 1125, 16, dt, c) for dt in ("bfloat16", "float32")
+              for c in (False, True)]
+    k1_err = serve_err = 0.0
     for bh, n, d, dt, causal in cases:
         q, k, v = qkv(bh, n, d, dtypes[dt])
         before = fa.LAUNCHES_MMA
@@ -456,6 +504,8 @@ def phase_kernels(torch, clock_hz: float) -> list:
             raise SystemExit("chip_smoke: flash_attention_fwd disagrees with its plain version")
         if (bh, n, d, dt, causal) == (16, 1125, 16, "bfloat16", False):
             k1_err = max(err_o, err_lse)
+        if (bh, n, d, dt, causal) == (SERVE_BH, 1125, 16, "bfloat16", False):
+            serve_err = max(err_o, err_lse)
     for bh, n, d, dt, causal in cases:
         check_bwd(torch, fa, gen, bh, n, d, dt, dtypes[dt], causal)
     dropped_tile_shift(torch, fa, gen, 1125, 16)
@@ -464,24 +514,25 @@ def phase_kernels(torch, clock_hz: float) -> list:
     for n in (128, 563, 1125):
         k2_shifts(torch, fa, gen, n, 16)
 
-    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err)]
+    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err)]
     rows += time_backward(torch, F, fa, gen, clock_hz)
     rows.append(int8_kernel_row(torch))
     return rows
 
 
-def time_forward(torch, F, fa, qkv, clock_hz: float, err: float) -> dict:
+def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: float) -> dict:
     """K1 at the generation shape (B*H = 16: CFG-doubled batch 2 x 8 heads,
-    N = 1125, D = 16, bf16) and at N = 4500 (a 2-minute window), both
-    causal values, by device time beside the CUDA-event time of back-to-back
-    calls, its plain version and SDPA's forward. The record row is the
-    generation shape's, non-causal."""
+    N = 1125, D = 16, bf16), at N = 4500 (a 2-minute window) and at the
+    serving batch (B*H = SERVE_BH at N = 1125), both causal values, by
+    device time beside the CUDA-event time of back-to-back calls, its plain
+    version and SDPA's forward. The record row is the generation shape's,
+    non-causal; its "serving_shape" entry holds the serving batch's."""
     def sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
-    row = None
-    for n in (1125, 4500):
-        bh, d = 16, 16
+    row = serving = None
+    for bh, n in ((16, 1125), (16, 4500), (SERVE_BH, 1125)):
+        d = 16
         q, k, v = qkv(bh, n, d, torch.bfloat16)
         for causal in (False, True):
             args = [(q, k, v, causal)]
@@ -503,7 +554,12 @@ def time_forward(torch, F, fa, qkv, clock_hz: float, err: float) -> dict:
                 f"{bound_ms:.6f} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), exp bound "
                 f"{ex_ms:.6f} ({bh * pairs / 1e6:.3f} M ex2); back-to-back calls by CUDA "
                 f"events {event_ms:.5f} (K1) and {library_event_ms:.5f} (sdpa) ms")
-            if (n, causal) == (1125, False):
+            if (bh, n, causal) == (SERVE_BH, 1125, False):
+                serving = {"bh": bh, "n": n, "d": d, "max_abs_err": serve_err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                           "library_ms": library_ms}
+            if (bh, n, causal) == (16, 1125, False):
                 row = {
                     "name": "flash_attention_fwd",
                     "route": "cuda",
@@ -518,6 +574,7 @@ def time_forward(torch, F, fa, qkv, clock_hz: float, err: float) -> dict:
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": library_ms,
                 }
+    row["serving_shape"] = serving
     return row
 
 
@@ -718,10 +775,11 @@ def time_backward(torch, F, fa, gen, clock_hz: float) -> list:
     return [rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"]]
 
 
-def tiny_pair(torch):
+def tiny_pair(torch, dtype: str = "float32"):
     """Two tiny Jen1s, on the CPU and on the card, with the same T5, UNet
-    and codec weights: tiny_test_config widths, fp32, one attention head
-    and flash_min_seq_len 128, a 1600 Hz codec with a 40-sample hop."""
+    and codec weights: tiny_test_config widths, `dtype` compute (fp32 by
+    default), one attention head and flash_min_seq_len 128, a 1600 Hz codec
+    with a 40-sample hop."""
     import dataclasses
 
     from jen1_tpu_torch.api.generation import Jen1
@@ -733,6 +791,7 @@ def tiny_pair(torch):
     # one head, so the level-1 transformer (16 channels) has head dim 16
     cfg.model_config = dataclasses.replace(
         cfg.model_config, use_flash_attention=True, flash_min_seq_len=128, attention_heads=1,
+        dtype=dtype,
     )
     codec_cfg = EncodecConfig(**TINY_CODEC)
 
@@ -1444,7 +1503,7 @@ def phase_bf16_weights(torch, jen1) -> int:
     """bf16 weight storage at full width: a second Jen1(longform_config(),
     weights_dtype="bfloat16") with the same seed, sharing the T5 and the
     codec; the UNet's weight bytes of both; paired 100-step 30 s requests
-    (fp32, bf16, bf16, fp32) with walls and peak memory; the two storages'
+    (BF16_ORDER) with walls and peak memory; the two storages'
     outputs must be equal (bf16 compute casts every matrix weight to bf16
     at use). Returns the counted K1 launches."""
     import numpy as np
@@ -1469,7 +1528,7 @@ def phase_bf16_weights(torch, jen1) -> int:
     prompt, seed = SLICE_PROMPTS[1]
     fa.LAUNCHES = fa.LAUNCHES_MMA = 0
     outs = {}
-    for name in ("fp32", "bf16", "bf16", "fp32"):
+    for name in BF16_ORDER:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1481,11 +1540,10 @@ def phase_bf16_weights(torch, jen1) -> int:
         outs.setdefault(name, []).append(out)
     launches, mma = fa.LAUNCHES, fa.LAUNCHES_MMA
     diff = float(np.abs(outs["fp32"][0] - outs["bf16"][0]).max())
-    repeat = max(float(np.abs(a[0] - a[1]).max()) for a in outs.values())
-    log(f"[bf16-weights] max|diff| bf16 vs fp32 weights {diff:.3e} (want 0); between repeats "
-        f"of one storage {repeat:.3e}; K1 launches {launches}, {mma} on the tensor-core route")
+    log(f"[bf16-weights] max|diff| bf16 vs fp32 weights {diff:.3e} (want 0); K1 launches "
+        f"{launches}, {mma} on the tensor-core route")
     del half, models
-    want = 4 * 2 * SLICE_STEPS
+    want = len(BF16_ORDER) * 2 * SLICE_STEPS
     if diff != 0.0 or launches != want or mma != want or not np.isfinite(outs["bf16"][0]).all():
         raise SystemExit(f"chip_smoke: bf16 weights gave max|diff| {diff} against fp32 "
                          f"weights, or K1 launches {launches} ({mma} tensor-core), want {want}")
@@ -1647,10 +1705,12 @@ def phase_flagship(torch) -> int:
 def profile_window(torch, tag: str, what: str, fn) -> dict:
     """Run `fn` once under torch.profiler: the device's busy share of its
     wall (sum of kernel times over the wall) and the kernels that take the
-    most device time. Returns {kernel name: (launches, device s)}."""
+    most device time. Returns {kernel name: (launches, device s)}. Only the
+    CUDA activity is traced: recording every CPU op of ~40,000 launches
+    slows the host (so the wall) and takes ~25 s to post-process."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1661,6 +1721,8 @@ def profile_window(torch, tag: str, what: str, fn) -> dict:
     busy_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
     log(f"[{tag}] {what} wall {wall:.4f} s (profiler on); device kernels "
         f"{len(kernels)}, busy {busy_s:.4f} s = {busy_s / wall:.4f} of the wall")
+    if not kernels:
+        raise SystemExit(f"chip_smoke: the profiler saw no device kernels in {what}")
     by_name: dict = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -1685,7 +1747,8 @@ def log_kernel_time(by_name: dict, tag: str, keys, what: str, where: str) -> Non
 
 def phase_train(torch) -> tuple:
     """The training slice at full width; returns the K1/K2/K3 launches of
-    the timed steps and of the checkpoint's two steps."""
+    the timed steps, of the checkpoint's two steps and of the remat
+    comparison's two steps."""
     import numpy as np
 
     from jen1_tpu_torch.config import longform_config
@@ -1769,7 +1832,8 @@ def phase_train(torch) -> tuple:
                     "the profiled step")
     log_kernel_time(by_name, "train-profile", ("flash_bwd_dq_mma",), "K2", "the profiled step")
     more = train_checkpoint(torch, cfg, trainer, state, batch)
-    return tuple(a + b for a, b in zip(total, more))
+    remat = train_remat(torch, cfg, trainer, state, batch)
+    return tuple(a + b + c for a, b, c in zip(total, more, remat))
 
 
 def train_checkpoint(torch, cfg, trainer, state, batch) -> tuple:
@@ -1840,6 +1904,596 @@ def train_checkpoint(torch, cfg, trainer, state, batch) -> tuple:
     return launched
 
 
+def reuse_k1(steps: int, k: int, final_full: bool) -> int:
+    """K1 launches of one request under encoder reuse: 2 per whole UNet
+    forward (the level-1 down and up transformers), 1 per decoder-only one
+    (the up transformer), as `reuse_schedule` marks the steps."""
+    from jen1_tpu_torch.diffusion.gdm import reuse_schedule
+
+    whole = reuse_schedule(steps, k, final_full)
+    return 2 * sum(whole) + (len(whole) - sum(whole))
+
+
+def cache_leaves(cache):
+    x, skips = cache
+    return [x] + [s for level in skips for s in level]
+
+
+def phase_small_reuse(torch) -> None:
+    """Encoder reuse at tiny widths, on the card against the CPU: the tiny
+    pair's UNet forward with return_encoder_cache (output and every cache
+    leaf, rtol 5e-3 / atol 5e-4, the CFG bar), then DDIM and DPM-Solver++
+    at encoder_reuse k in SMALL_REUSE_KS x S in SMALL_REUSE_STEPS, in fp32
+    and in bf16 compute, with x_T and each step's noise from one CPU stream.
+    fp32: rtol 2e-2 / atol 2e-3, the bar of phase small-gdm. bf16 compute
+    rounds x to bf16 at the UNet's input and every activation after it, so
+    the request moves with any rounding change; the bar is phase
+    small-gdm's spread bar, three times the CPU's own spread (mean and max
+    of |diff|), under a change of x_T at bf16's rounding step (2^-8
+    relative: a 1e-6 change does not survive the input rounding). K1
+    launches per request: 2 per whole forward, 1 per decoder-only one, on
+    the tensor-core route in bf16 and the scalar one in fp32."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import gdm
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    cpu, card = tiny_pair(torch)
+    g = torch.Generator().manual_seed(3)
+    b, length, m = 2, 520, cpu.config.model_config.context_embedding_max_length
+    e = cpu.config.model_config.context_embedding_features
+    inp = dict(x=torch.randn(b, length, 8, generator=g), t=torch.tensor([3, 5]),
+               embedding=torch.randn(b, m, e, generator=g),
+               channels_list=[torch.randn(b, length, 9, generator=g)])
+    outs = {}
+    for name, jen1 in (("cpu", cpu), ("card", card)):
+        dev = jen1.device
+        with torch.no_grad():
+            outs[name] = jen1.model(
+                inp["x"].to(dev), inp["t"].to(dev), embedding=inp["embedding"].to(dev),
+                channels_list=[c.to(dev) for c in inp["channels_list"]], embedding_scale=0.8,
+                batch_cfg=True, scale_cfg=True, return_encoder_cache=True)
+    pairs = [(outs["card"][0], outs["cpu"][0])] + list(
+        zip(cache_leaves(outs["card"][1]), cache_leaves(outs["cpu"][1])))
+    worst = max(((a.cpu() - r).abs() / (5e-4 + 5e-3 * r.abs())).max().item() for a, r in pairs)
+    log(f"[small-reuse] UNet forward with its encoder cache, card vs CPU: output and "
+        f"{len(pairs) - 1} cache leaves {[tuple(a.shape) for a, _ in pairs[1:]]}, worst "
+        f"|diff| at {worst:.4f} of the bar (rtol 5e-3, atol 5e-4)")
+    if worst > 1.0:
+        raise SystemExit("chip_smoke: the UNet's encoder cache on the card disagrees with the CPU")
+
+    draws = (gdm.initial_noise, gdm.step_noise)
+    try:
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16":
+                cpu, card = tiny_pair(torch, dtype)
+            for mode in ("scan", "dpm++"):
+                for k in SMALL_REUSE_KS:
+                    for steps in SMALL_REUSE_STEPS:
+                        shape = (1, 520, 8)
+                        stream = torch.Generator().manual_seed(7)
+                        x_t = torch.randn(shape, generator=stream)
+                        noises = [torch.randn(shape, generator=stream) for _ in range(steps)]
+                        gdm.step_noise = lambda x, generator, index, uniform=False: \
+                            noises[index].to(x.device)
+
+                        def run(jen1, start=x_t):
+                            gdm.initial_noise = lambda shape, generator, device: start.to(device)
+                            return jen1.generate("a beautiful song", seed=5, steps=steps,
+                                                 seconds=13, use_gdm=True, sampler_mode=mode,
+                                                 encoder_reuse=k)
+
+                        ref = run(cpu)
+                        fa.LAUNCHES = fa.LAUNCHES_MMA = 0
+                        out = run(card)
+                        launched, mma = fa.LAUNCHES, fa.LAUNCHES_MMA
+                        want = reuse_k1(steps, k, final_full=mode == "scan")
+                        diff = np.abs(out - ref)
+                        if dtype == "bfloat16":
+                            spread = [np.abs(run(cpu, x_t * (1 + sign * 2**-8 * noises[0]))
+                                             - ref) for sign in (1, -1)]
+                            bar_mean = 3 * max(d.mean() for d in spread)
+                            bar_max = 3 * max(d.max() for d in spread)
+                            close = diff.mean() <= bar_mean and diff.max() <= bar_max
+                            bar = f"mean <= {bar_mean:.3e}, max <= {bar_max:.3e}"
+                        else:
+                            close = np.allclose(out, ref, rtol=2e-2, atol=2e-3)
+                            bar = "rtol 2e-2, atol 2e-3"
+                        want_mma = want if dtype == "bfloat16" else 0
+                        ok = (close and out.shape == ref.shape and np.isfinite(out).all()
+                              and launched == want and mma == want_mma)
+                        log(f"[small-reuse] {dtype} compute, {mode}, encoder_reuse={k}, "
+                            f"S={steps}: card vs CPU max|diff|={diff.max():.3e} mean="
+                            f"{diff.mean():.3e} ({bar}); K1 launches {launched} (want {want}), "
+                            f"tensor-core {mma} (want {want_mma}) {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise SystemExit("chip_smoke: a tiny encoder-reuse request on the "
+                                             "card disagrees with the CPU")
+    finally:
+        gdm.initial_noise, gdm.step_noise = draws
+
+
+def http_post(url: str, body: dict, timeout: float = 600.0):
+    """(status, headers, body bytes) of a JSON POST; HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def start_http(service, sample_rate: int):
+    """A ThreadingHTTPServer on 127.0.0.1 (a free port) over `service`,
+    serving from a daemon thread; returns (server, base URL)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from jen1_tpu_torch.serve import make_handler
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service, sample_rate))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def phase_small_serve(torch) -> None:
+    """The serving path at tiny widths on the card: the tiny pair's card
+    Jen1 behind GenerationService (max_batch 3, GDM DDIM, 3 steps, 2 s) and
+    its HTTP server on 127.0.0.1. Concurrent requests co-batch; a seeded
+    request equals lane 0 of generate() with the same padded prompts and
+    seed, bit for bit; GET /healthz; POST /generate as WAV and as npy; one
+    POST /generate_long stream (equal to generate_long's PCM); a 503 with
+    Retry-After under overload; close() drains admitted work. Then
+    batch_generate on 3 prompts into a temporary directory."""
+    import io
+    import threading
+    import urllib.request
+    import wave
+
+    import numpy as np
+
+    from jen1_tpu_torch.serve import GenerationService, ServiceClosed
+
+    _, card = tiny_pair(torch)
+    seconds, steps, sr = 2.0, 3, card.sample_rate
+    svc = GenerationService(card, max_batch=3, max_wait_ms=300.0, default_seconds=seconds,
+                            default_steps=steps)
+    httpd, url = start_http(svc, sr)
+    try:
+        results = [None] * 3
+
+        def worker(i):
+            results[i] = svc.submit(f"tune {i}", timeout=600)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batches = svc.stats["batches"]
+        shapes_ok = all(r is not None and r.shape == (2, int(seconds * sr))
+                        and np.isfinite(r).all() for r in results)
+        seeded = svc.submit("seeded tune", seed=SERVE_SEED, timeout=600)
+        direct = card.generate(["seeded tune", "", ""], seed=SERVE_SEED, steps=steps,
+                               batch_size=3, seconds=seconds, use_gdm=True)[0]
+        seed_diff = float(np.abs(seeded - direct).max())
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        code_wav, head_wav, wav_bytes = http_post(f"{url}/generate", {"prompt": "hi"})
+        with wave.open(io.BytesIO(wav_bytes)) as w:
+            wav_shape = (w.getnchannels(), w.getframerate(), w.getnframes())
+        code_npy, _, npy_bytes = http_post(f"{url}/generate", {"prompt": "hi", "format": "npy"})
+        npy = np.load(io.BytesIO(npy_bytes))
+        long_body = {"prompt": "stream me", "total_seconds": 2.5, "window_seconds": 1.0,
+                     "context_seconds": 0.5, "steps": 2, "seed": 13}
+        code_long, head_long, pcm = http_post(f"{url}/generate_long", long_body)
+        got = np.frombuffer(pcm, "<i2").reshape(-1, 2)
+        want = card.generate_long("stream me", total_seconds=2.5, window_seconds=1.0,
+                                  context_seconds=0.5, seed=13, steps=2, use_gdm=True)[0]
+        long_equal = np.array_equal(got, (np.clip(want.T, -1, 1) * 32767.0).astype("<i2"))
+    finally:
+        httpd.shutdown()
+        svc.close()
+    log(f"[small-serve] 3 concurrent requests in {batches} batch(es), shapes ok {shapes_ok}; "
+        f"seeded request vs lane 0 of generate(): max|diff| {seed_diff:.3e} (want 0); /healthz "
+        f"{health}; /generate WAV {code_wav} {head_wav['Content-Type']} {wav_shape}, npy "
+        f"{code_npy} {npy.shape} {npy.dtype}; /generate_long {code_long} "
+        f"{head_long.get('X-Sample-Rate')} Hz, {got.shape} samples, equal to generate_long "
+        f"{long_equal}")
+    if not (shapes_ok and batches <= 2 and seed_diff == 0.0 and health["ok"]
+            and (code_wav, code_npy, code_long) == (200, 200, 200)
+            and wav_shape == (2, sr, int(seconds * sr)) and npy.shape == (2, int(seconds * sr))
+            and long_equal and svc.stats["errors"] == 0):
+        raise SystemExit("chip_smoke: the tiny serving path on the card failed a check")
+
+    # overload: one admitted request at a time, four at once
+    over = GenerationService(card, max_batch=1, max_wait_ms=5.0, max_queue=1,
+                             default_seconds=seconds, default_steps=steps)
+    httpd, url = start_http(over, sr)
+    codes, retry = [], []
+    lock = threading.Lock()
+
+    def hammer():
+        code, head, _ = http_post(f"{url}/generate", {"prompt": "x"})
+        with lock:
+            codes.append(code)
+            if code == 503:
+                retry.append(head.get("Retry-After"))
+
+    try:
+        threads = [threading.Thread(target=hammer) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        httpd.shutdown()
+        over.close()
+    # close() drains: three admitted requests finish, a later one is refused
+    drain_svc = GenerationService(card, max_batch=1, max_wait_ms=5.0, max_queue=8,
+                                  default_seconds=seconds, default_steps=steps)
+    drained = []
+    threads = [threading.Thread(target=lambda i=i: drained.append(
+        drain_svc.submit(f"drain {i}", timeout=600))) for i in range(3)]
+    for t in threads:
+        t.start()
+    time.sleep(0.05)
+    drain_svc.close()
+    for t in threads:
+        t.join()
+    try:
+        drain_svc.submit("too late", timeout=5)
+        refused = False
+    except ServiceClosed:
+        refused = True
+    log(f"[small-serve] overload (max_queue 1, 4 at once): HTTP codes {sorted(codes)}, "
+        f"Retry-After {retry}; close() drained {len(drained)} of 3 admitted requests, a later "
+        f"submit refused {refused}")
+    if 200 not in codes or 503 not in codes or not all(r and int(r) >= 1 for r in retry) \
+            or len(drained) != 3 or not refused:
+        raise SystemExit("chip_smoke: overload shedding or close() draining failed")
+    small_batch_generate(torch)
+
+
+def small_batch_generate(torch) -> None:
+    """`python -m jen1_tpu_torch.api.batch_generate` on the card: 3 prompts
+    in batches of 2 (the second padded with ""), 1 s, 2 DDIM steps, a tiny
+    UNet with the EnCodec-48k codec's 128 latent channels (random weights):
+    one WAV per prompt and the manifest."""
+    import dataclasses
+    import wave
+
+    from jen1_tpu_torch.api import batch_generate
+
+    cfg = tiny_train_config()
+    cfg.model_config = dataclasses.replace(cfg.model_config, in_channels=128,
+                                           out_channels=128, context_channels=(129,))
+    with scratch_dir() as d:
+        d = Path(d)
+        cfg.to_json(str(d / "cfg.json"))
+        (d / "prompts.txt").write_text("warm jazz\nsolo cello\nfast drums\n")
+        t0 = time.perf_counter()
+        batch_generate.main(["--prompts", str(d / "prompts.txt"), "--out", str(d / "out"),
+                             "--config", str(d / "cfg.json"), "--seconds", "1", "--steps", "2",
+                             "--batch-size", "2", "--use-gdm", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        manifest = json.loads((d / "out" / "manifest.json").read_text())
+        shapes = []
+        for entry in manifest:
+            with wave.open(str(d / "out" / entry["file"])) as w:
+                shapes.append((w.getnchannels(), w.getframerate(), w.getnframes()))
+    log(f"[small-serve] batch_generate: 3 prompts in {wall:.2f} s, manifest "
+        f"{[e['file'] for e in manifest]}, WAV (channels, rate, frames) {shapes}")
+    if [e["prompt"] for e in manifest] != ["warm jazz", "solo cello", "fast drums"] \
+            or shapes != [(2, 48_000, 48_000)] * 3:
+        raise SystemExit("chip_smoke: batch_generate wrote the wrong files")
+
+
+def phase_reuse(torch, jen1) -> int:
+    """Encoder reuse at full width on the phase-main Jen1 (longform_config(),
+    GDM, 30 s, SLICE_STEPS steps, B=1, one seed): DDIM requests at
+    encoder_reuse REUSE_KS and one DPM-Solver++ request at REUSE_DPM_K.
+    Walls; the relative L2 distance of each k > 1 latent and audio from the
+    first k = 1 request's; K1 launches per request, which must equal what
+    `reuse_schedule` gives (2 per whole forward, 1 per decoder-only one),
+    all on the tensor-core route. Then the device busy seconds of a
+    PROFILE_STEPS request at k = 1 and at k = 2 under torch.profiler.
+    Returns the counted K1 launches."""
+    import numpy as np
+
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    prompt, seed = SLICE_PROMPTS[0]
+    latents = []
+    decode = jen1.codec.decode_latent_chunked
+
+    def recording(z, **kw):
+        latents.append(z.float().cpu().numpy())
+        return decode(z, **kw)
+
+    requests = [("scan", k) for k in REUSE_KS] + [("dpm++", REUSE_DPM_K)]
+    total = 0
+    outs = []
+    jen1.codec.decode_latent_chunked = recording
+    try:
+        _, wall = sync_wall(torch, lambda: jen1.generate(
+            prompt, seed=seed, steps=PROFILE_STEPS, seconds=SLICE_SECONDS, use_gdm=True,
+            encoder_reuse=2))
+        log(f"[reuse] warm-up ({PROFILE_STEPS} DDIM steps, k=2) {wall:.3f} s")
+        latents.clear()
+        torch.cuda.reset_peak_memory_stats()
+        for mode, k in requests:
+            fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+            out, wall = sync_wall(torch, lambda: jen1.generate(
+                prompt, seed=seed, steps=SLICE_STEPS, seconds=SLICE_SECONDS, use_gdm=True,
+                sampler_mode=mode, encoder_reuse=k))
+            counts = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV)
+            want = reuse_k1(SLICE_STEPS, k, final_full=mode == "scan")
+            total += counts[0]
+            outs.append(out)
+            ref_z, ref_a = latents[0], outs[0]
+            rel_z = float(np.linalg.norm(latents[-1] - ref_z) / np.linalg.norm(ref_z))
+            rel_a = float(np.linalg.norm(out - ref_a) / np.linalg.norm(ref_a))
+            phases = " ".join(f"{p}={v:.4f}" for p, v in jen1.last_timings.items())
+            finite = bool(np.isfinite(out).all())
+            log(f"[reuse] {mode} encoder_reuse={k}: wall {wall:.4f} s; phases (s): {phases}; "
+                f"K1 launches {counts[0]} (want {want}), tensor-core {counts[1]}, backward "
+                f"{counts[2]}; relative L2 from the first k=1 request: latent {rel_z:.4e}, "
+                f"audio {rel_a:.4e}; shape {out.shape}; finite {finite}")
+            if out.shape != (1, 2, SLICE_SECONDS * jen1.sample_rate) or not finite:
+                raise SystemExit(f"chip_smoke: reuse gave shape {out.shape} or non-finite values")
+            if counts != (want, want, 0):
+                raise SystemExit(f"chip_smoke: {mode} encoder_reuse={k} K1 launches (all, "
+                                 f"tensor-core, backward) {counts}, want ({want}, {want}, 0)")
+    finally:
+        del jen1.codec.decode_latent_chunked
+    log(f"[reuse] peak device memory {torch.cuda.max_memory_allocated()} bytes; k=1 repeat "
+        f"max|diff| {float(np.abs(outs[0] - outs[len(REUSE_KS) - 1]).max()):.3e}")
+    for k in (1, 2):
+        by_name = profile_window(torch, "reuse-profile", f"{PROFILE_STEPS}-step DDIM, k={k}",
+                                 lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                                                       seconds=SLICE_SECONDS, use_gdm=True,
+                                                       encoder_reuse=k))
+        log_kernel_time(by_name, "reuse-profile", ("flash_fwd_mma",), "K1",
+                        f"the profiled k={k} request")
+    return total
+
+
+def phase_serve(torch, jen1) -> int:
+    """The serving path at full width: GenerationService(max_batch=
+    SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS, 30 s, SLICE_STEPS DDIM steps) over
+    the phase-main Jen1. One warm-up batch of PROFILE_STEPS steps;
+    SERVE_REQUESTS default-seed requests submitted at once from as many
+    threads (two batches: a full one and one padded); one seeded request
+    twice (max|diff| between them); one POST /generate over HTTP on
+    127.0.0.1. Logs each request's latency (submit to return), each batch's
+    generate() wall, audio-seconds per wall-second over the concurrent
+    requests, phase_totals, the peak device memory at B=4, K1 launches and
+    stats. K1 is held to 2 launches per forward of the CFG-doubled batch, all
+    on the tensor-core route, for the concurrent batches, each seeded request
+    and the HTTP request. Then the busy share of a PROFILE_STEPS B=4 request
+    under torch.profiler. Returns the counted K1 launches."""
+    import io
+    import threading
+    import wave
+
+    import numpy as np
+
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.serve import GenerationService
+
+    sr = jen1.sample_rate
+    samples = SLICE_SECONDS * sr
+    walls = []
+    generate = jen1.generate
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = generate(*a, **kw)
+        walls.append((len([p for p in a[0] if p]), time.perf_counter() - t0))
+        return out
+
+    jen1.generate = timed
+    svc = GenerationService(jen1, max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                            default_seconds=SLICE_SECONDS, default_steps=SLICE_STEPS)
+    httpd, url = start_http(svc, sr)
+    try:
+        t0 = time.perf_counter()
+        warm = svc.submit("warm-up", steps=PROFILE_STEPS, timeout=900)
+        log(f"[serve] warm-up batch (1 request, padded to {SERVE_BATCH}, {PROFILE_STEPS} "
+            f"steps) {time.perf_counter() - t0:.3f} s, shape {warm.shape}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+        before = dict(svc.stats)
+        batches_before = len(walls)
+        results, latencies = [None] * SERVE_REQUESTS, [0.0] * SERVE_REQUESTS
+        prompts = [p for p, _ in SLICE_PROMPTS] + TRAIN_PROMPTS + ["warm jazz trio"]
+
+        def worker(i):
+            t = time.perf_counter()
+            results[i] = svc.submit(prompts[i % len(prompts)], timeout=900)
+            latencies[i] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(SERVE_REQUESTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        span = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV)
+        batch_walls = walls[batches_before:]
+        padded = svc.stats["padded_lanes"] - before["padded_lanes"]
+        n_batches = svc.stats["batches"] - before["batches"]
+        log(f"[serve] {SERVE_REQUESTS} concurrent requests: latencies (s) "
+            f"{[round(x, 4) for x in latencies]}; {n_batches} batches, (requests, generate() "
+            f"wall s) {[(n, round(w, 4)) for n, w in batch_walls]}; {padded} padded lanes; "
+            f"span {span:.4f} s, audio-s per wall-s {SERVE_REQUESTS * SLICE_SECONDS / span:.4f}; "
+            f"peak device memory {peak} bytes; K1 launches (all, tensor-core, backward) {k1}")
+        want_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
+        want_padded = want_batches * SERVE_BATCH - SERVE_REQUESTS
+        want_k1 = want_batches * 2 * SLICE_STEPS
+        shapes_ok = all(r is not None and r.shape == (2, samples) and np.isfinite(r).all()
+                        for r in results)
+        if not shapes_ok or n_batches != want_batches or padded != want_padded \
+                or k1 != (want_k1, want_k1, 0):
+            raise SystemExit(f"chip_smoke: serving gave {n_batches} batches, {padded} padded "
+                             f"lanes, K1 {k1}, shapes ok {shapes_ok}; want {want_batches}, "
+                             f"{want_padded}, ({want_k1}, {want_k1}, 0)")
+        launched = k1[0]
+
+        def one_batch_k1(what: str) -> int:
+            # every single-batch request runs SLICE_STEPS full forwards of
+            # the CFG-doubled batch, all on the tensor-core route
+            k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV)
+            want = (2 * SLICE_STEPS, 2 * SLICE_STEPS, 0)
+            if k1 != want:
+                raise SystemExit(f"chip_smoke: {what} launched K1 (all, tensor-core, "
+                                 f"backward) {k1}, want {want}")
+            return k1[0]
+
+        seeded = []
+        for _ in range(2):
+            fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+            t = time.perf_counter()
+            seeded.append(svc.submit(SLICE_PROMPTS[1][0], seed=SERVE_SEED, timeout=900))
+            log(f"[serve] seeded request (seed {SERVE_SEED}, lane 0 of its own batch): "
+                f"latency {time.perf_counter() - t:.4f} s; K1 launches {fa.LAUNCHES}, "
+                f"tensor-core {fa.LAUNCHES_MMA}")
+            launched += one_batch_k1("the seeded request")
+        seed_diff = float(np.abs(seeded[0] - seeded[1]).max())
+        log(f"[serve] the seeded request twice: max|diff| {seed_diff:.3e} (0 when the same "
+            f"kernels run)")
+
+        fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+        t = time.perf_counter()
+        code, head, body = http_post(f"{url}/generate", {"prompt": SLICE_PROMPTS[0][0]},
+                                     timeout=900)
+        http_wall = time.perf_counter() - t
+        with wave.open(io.BytesIO(body)) as w:
+            wav = (w.getnchannels(), w.getframerate(), w.getnframes())
+        log(f"[serve] POST /generate over HTTP: {code} {head['Content-Type']} {wav}, "
+            f"{len(body)} bytes, latency {http_wall:.4f} s; K1 launches {fa.LAUNCHES}, "
+            f"tensor-core {fa.LAUNCHES_MMA}")
+        launched += one_batch_k1("the HTTP request")
+        phases = " ".join(f"{k}={v:.4f}" for k, v in svc.phase_totals.items())
+        log(f"[serve] phase_totals (s): {phases}; stats {svc.stats}")
+        if code != 200 or wav != (2, sr, samples) or svc.stats["errors"] != 0 \
+                or not all(np.isfinite(x).all() for x in seeded):
+            raise SystemExit("chip_smoke: the HTTP request or the seeded requests failed")
+    finally:
+        httpd.shutdown()
+        svc.close()
+        del jen1.generate
+    prompt, seed = SLICE_PROMPTS[0]
+    by_name = profile_window(
+        torch, "serve-profile", f"{PROFILE_STEPS}-step B={SERVE_BATCH} DDIM request",
+        lambda: jen1.generate([prompt] * SERVE_BATCH, seed=seed, steps=PROFILE_STEPS,
+                              batch_size=SERVE_BATCH, seconds=SLICE_SECONDS, use_gdm=True))
+    log_kernel_time(by_name, "serve-profile", ("flash_fwd_mma",), "K1",
+                    f"the profiled B={SERVE_BATCH} request")
+    return launched
+
+
+def train_remat(torch, cfg, trainer, state, batch) -> tuple:
+    """ModelConfig.remat at full width: a second trainer with remat=True
+    takes the first one's whole state, and both take two steps with the same
+    draws (the first allocates the fresh trainer's gradients, so the
+    second's walls and peaks are the ones to read). Losses within rtol 2e-3
+    and every gradient leaf within the train bar, at each step; peak device
+    memory over what was allocated before each step; from the forward's
+    start (after zero_grad has freed the last step's gradients), what the
+    forward left allocated (the activations saved for the backward) and the
+    peak through the backward, read as the optimizer starts;
+    K1/K2/K3 launches of each remat step, which recomputes each block's
+    forward in the backward: K1 twice per transformer (8), K2 and K3 once
+    (4). Returns the K1/K2/K3 launches of the four steps."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    rcfg = copy.deepcopy(cfg)
+    rcfg.model_config = dataclasses.replace(rcfg.model_config, remat=True)
+    remat = build_trainer(rcfg, device="cuda")
+    runs = {"plain": [trainer, state], "remat": [remat, remat.load_state_dict(
+        trainer.state_dict(state))]}
+    want = {"plain": (TRAIN_LAUNCHES,) * 3,
+            "remat": (2 * TRAIN_LAUNCHES, TRAIN_LAUNCHES, TRAIN_LAUNCHES)}
+    marks = {}
+
+    def around_forward(fn):
+        def wrapped(*a, **kw):
+            marks["pre_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            marks["start"] = torch.cuda.memory_allocated()
+            out = fn(*a, **kw)
+            marks["forward"] = torch.cuda.memory_allocated()
+            return out
+        return wrapped
+
+    def before_optimizer(fn):
+        def wrapped(*a, **kw):
+            marks["backward_peak"] = torch.cuda.max_memory_allocated()
+            return fn(*a, **kw)
+        return wrapped
+
+    for tr, _ in runs.values():
+        tr._multi_task_loss = around_forward(tr._multi_task_loss)
+        tr._apply_optimizer = before_optimizer(tr._apply_optimizer)
+    launched = (0, 0, 0)
+    for step in (1, 2):
+        draws = TRAIN_STEPS + 2 + step
+        metrics = {}
+        for name, run in runs.items():
+            tr, st = run
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+            fa.LAUNCHES_MMA = fa.LAUNCHES_DQ_MMA = fa.LAUNCHES_DKV_MMA = 0
+            t0 = time.perf_counter()
+            run[1], m = tr.train_step(st, batch, step_generator(tr.device, TRAIN_SEED, draws),
+                                      np.random.default_rng((TRAIN_SEED, draws)))
+            metrics[name] = {k: float(v) for k, v in m.items()}
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            mma = (fa.LAUNCHES_MMA, fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV_MMA)
+            peak = max(marks["pre_peak"], torch.cuda.max_memory_allocated())
+            start = marks["start"]
+            log(f"[train-remat] step {step}, {name}: wall {wall:.4f} s; peak device memory "
+                f"{peak} bytes, {peak - base} above the {base} allocated before (both "
+                f"trainers resident); from the forward's start ({start}): saved for the "
+                f"backward {marks['forward'] - start}, peak through the backward "
+                f"{marks['backward_peak'] - start}; loss/train "
+                f"{metrics[name]['loss/train']:.6f}, grad_norm {metrics[name]['grad_norm']:.6f}; "
+                f"K1/K2/K3 launches {counts}, tensor-core {mma}")
+            if counts != want[name] or mma != want[name]:
+                raise SystemExit(f"chip_smoke: the {name} step launched K1/K2/K3 {counts} "
+                                 f"({mma} tensor-core), want {want[name]}")
+            launched = tuple(a + b for a, b in zip(launched, counts))
+        worst, worst_name = worst_grad_leaf(remat.model,
+                                            [p.grad for p in trainer.model.parameters()])
+        ok = all(np.isclose(metrics["remat"][k], metrics["plain"][k], rtol=2e-3, atol=0)
+                 for k in metrics["plain"] if k.startswith("loss"))
+        log(f"[train-remat] step {step}, remat vs plain: losses {'ok' if ok else 'FAIL'} "
+            f"(rtol 2e-3); worst gradient leaf {worst_name} at {worst:.4f} of its bar")
+        if not ok or worst > 1.0:
+            raise SystemExit("chip_smoke: the remat step differs from the plain one")
+    del trainer._multi_task_loss, trainer._apply_optimizer
+    del remat, runs
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1858,10 +2512,14 @@ def main() -> int:
     phase_small_ckpt(torch)
     phase_small_tasks(torch)
     phase_small_long(torch)
+    phase_small_reuse(torch)
+    phase_small_serve(torch)
     k1_generation, jen1 = phase_main(torch)
     k1_generation += phase_tasks(torch, jen1)
     k1_generation += phase_long(torch, jen1)
     k1_generation += phase_bf16_weights(torch, jen1)
+    k1_generation += phase_reuse(torch, jen1)
+    k1_generation += phase_serve(torch, jen1)
     del jen1
     gc.collect()
     torch.cuda.empty_cache()

@@ -24,10 +24,18 @@ weight-only inference is a property of the UNet's modules:
 `attach_qweights(jen1.model, quantize_conv_params(jen1.model))`
 (`ops/int8_matmul.py`) makes its large stride-1 convs run K4.
 
-`encoder_reuse > 1`, LoRA and `output_transport="device"` raise
-NotImplementedError naming their ROADMAP Queue 1 item; `generate_tracks`
-is not ported yet. The model runs on `device` ("cuda" by default; "cpu"
-only when asked).
+Serving. `encoder_reuse=k` (GDM DDIM or DPM-Solver++) runs the UNet's
+encoder on one step of every k and its decoder alone on the others, against
+the cached encoder features (Faster-Diffusion encoder propagation).
+`output_transport="device"` returns the result as a tensor on the model's
+device, with no copy to the host and no synchronize after the decode: the
+caller fetches it (`.cpu()`), as `jen1_tpu_torch.serve` does in its
+completer threads. JAX's `rng_impl` and `compiler_options` are XLA knobs
+with no counterpart here.
+
+LoRA raises NotImplementedError naming its ROADMAP Queue 1 item;
+`generate_tracks` is not ported yet. The model runs on `device` ("cuda" by
+default; "cpu" only when asked).
 """
 
 from __future__ import annotations
@@ -233,12 +241,17 @@ class Jen1:
         return self._gdm_cache[steps]
 
     def _model_fn(self, x, t, **kw):
-        """The UNet at the compute dtype, fp32 at the sampler boundary."""
+        """The UNet at the compute dtype, fp32 at the sampler boundary; with
+        `return_encoder_cache` (output, cache), the cache at the compute
+        dtype."""
         dtype = self.compute_dtype
         kw["embedding"] = kw["embedding"].to(dtype)
         if kw.get("channels_list") is not None:
             kw["channels_list"] = [c.to(dtype) for c in kw["channels_list"]]
-        return self.model(x.to(dtype), t, **kw).float()
+        out = self.model(x.to(dtype), t, **kw)
+        if kw.get("return_encoder_cache"):
+            return out[0].float(), out[1]
+        return out.float()
 
     def _encoder(self, encode_mode: str):
         """The codec encoder generate() uses (jen1_tpu/api/generation.py:490-495):
@@ -326,10 +339,13 @@ class Jen1:
         encoder_reuse: int = 1,
         output_dtype: str = "float32",
         output_transport: str = "host",
-    ) -> np.ndarray:
+    ):
         """Waveform (B, channels, samples) float32, or int16 PCM with
         output_dtype="int16" (converted on the device); with decode=False
-        the latent (B, dimension, frames).
+        the latent (B, dimension, frames). A numpy array, or with
+        output_transport="device" the tensor on the model's device, returned
+        without a synchronize after the decode (`last_timings` then ends at
+        "decode" and has no "fetch").
 
         task: "text_guided", "music_inpaint" (needs `inpainting_scope`
         (start, end) in seconds; `init_audio` is padded or cropped to
@@ -347,7 +363,9 @@ class Jen1:
         use_gdm=True samples with the GDM: DDIM over `steps` of the config's
         `steps` timesteps, or DDPM when `steps` equals them;
         sampler_mode="dpm++" runs DPM-Solver++(2M) instead. "scan" and
-        "stepwise" are one loop here."""
+        "stepwise" are one loop here. encoder_reuse=k > 1 (GDM, "scan" or
+        "dpm++") runs the UNet's encoder on one step of each k-step block and
+        its decoder alone on the others (`diffusion/gdm.py::reuse_schedule`)."""
         # the JAX package's checks (jen1_tpu/api/generation.py:403-411, 582-595)
         if output_dtype not in ("float32", "int16"):
             raise ValueError(f"output_dtype must be 'float32' or 'int16', got {output_dtype!r}")
@@ -368,20 +386,16 @@ class Jen1:
             raise ValueError(f"encode_mode must be one of {ENCODE_MODES}, got {encode_mode!r}")
         if task not in TASKS:
             raise ValueError(f"unknown task: {task}")
-        if encoder_reuse > 1:
-            raise not_ported("encoder_reuse > 1 (the UNet encoder cache)",
-                              "ROADMAP Queue 1, 'UNet encoder cache and encoder_reuse'")
-        if output_transport == "device":
-            raise not_ported("output_transport='device'", "ROADMAP Queue 1, 'Serving'")
+        on_device = output_transport == "device"
 
         dev = self.device
         timings: Dict[str, float] = {}
         self.last_timings = timings
         t_prev = time.perf_counter()
 
-        def mark(phase: str) -> None:
+        def mark(phase: str, sync: bool = True) -> None:
             nonlocal t_prev
-            if dev.type == "cuda":
+            if sync and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             now = time.perf_counter()
             timings[phase] = timings.get(phase, 0.0) + (now - t_prev)
@@ -442,6 +456,7 @@ class Jen1:
                 latents = self._get_gdm(steps).sample(
                     self._model_fn, shape, conditioning, generator, device=dev,
                     causal=causal, mode=sampler_mode, init_data=init_data,
+                    encoder_reuse=int(encoder_reuse),
                 )
             else:
                 latents = self.diffusion.p_sample_loop(
@@ -450,6 +465,8 @@ class Jen1:
                 )
             mark("sampler")
             if not decode:
+                if on_device:
+                    return latents.transpose(1, 2)  # (B, D, F)
                 out = latents.cpu().numpy().transpose(0, 2, 1)  # (B, D, F)
                 mark("fetch")
                 return out
@@ -460,7 +477,9 @@ class Jen1:
                     latents, dtype=torch.bfloat16 if decode_mode == "chunked_bf16" else None)
         if output_dtype == "int16":
             audio = (audio.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-        mark("decode")
+        mark("decode", sync=not on_device)
+        if on_device:
+            return audio.transpose(1, 2)  # (B, ch, T), still being computed
         out = audio.cpu().numpy().transpose(0, 2, 1)  # (B, ch, T)
         mark("fetch")
         return out

@@ -36,18 +36,27 @@ META_FILE = "meta.json"
 _TMP_PREFIX = ".tmp-"
 
 
+def unwrap_state_dict(obj: Any) -> Any:
+    """The state dict inside `obj`: a `{"state_dict": ...}` wrapper
+    (jen1_tpu/conditioning/conditioners.py:300-306) and then a
+    `{"model": ...}` one (a reference training checkpoint) are stepped
+    through."""
+    for key in ("state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    return obj
+
+
 def load_torch_file(path: str, map_location="cpu", *, unwrap: bool = False,
                     mmap: bool = False) -> Any:
     """The object `torch.save` wrote to the local file `path`, read with
     weights_only=True (tensors, numbers and plain containers only). With
-    `unwrap`, a `{"state_dict": ...}` wrapper is stepped through
-    (jen1_tpu/conditioning/conditioners.py:300-306). With `mmap` the file
-    is memory-mapped, so a tensor's bytes are read when it is used; that
-    needs torch's zip format, which `CheckpointManager.save` writes."""
+    `unwrap`, the state dict inside it (`unwrap_state_dict`). With `mmap`
+    the file is memory-mapped, so a tensor's bytes are read when it is
+    used; that needs torch's zip format, which `CheckpointManager.save`
+    writes."""
     obj = torch.load(path, map_location=map_location, weights_only=True, mmap=mmap)
-    if unwrap and isinstance(obj, dict) and "state_dict" in obj:
-        obj = obj["state_dict"]
-    return obj
+    return unwrap_state_dict(obj) if unwrap else obj
 
 
 def is_step_dir(path: str) -> bool:

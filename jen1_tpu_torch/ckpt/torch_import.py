@@ -27,7 +27,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from jen1_tpu_torch.ckpt.checkpoint import load_torch_file
+from jen1_tpu_torch.ckpt.checkpoint import load_torch_file, unwrap_state_dict
 from jen1_tpu_torch.ckpt.from_jax import load_flax_params
 
 
@@ -211,5 +211,5 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module, model_config):
     from `model_config`); returns (epoch, learning_rate), None where the file
     has none."""
     obj = load_torch_file(path)
-    load_flax_params(model, convert_reference_unet(obj.get("model", obj), model_config))
+    load_flax_params(model, convert_reference_unet(unwrap_state_dict(obj), model_config))
     return obj.get("epoch"), obj.get("learning_rate")

@@ -334,14 +334,15 @@ class _RecordingDict:
         return self._d.keys()
 
 
-def convert_torch_encodec(state_dict, config: EncodecConfig) -> dict:
+def convert_torch_encodec(state_dict, config: EncodecConfig, strict: bool = True) -> dict:
     """The facebookresearch/encodec torch state dict as the JAX package's
     codec parameters ({"encoder", "decoder", "codebooks"} of numpy arrays,
     jen1_tpu/codec/model.py:495-668), which `ckpt/from_jax.py::load_encodec`
     loads into the port's codec. Weight-normalized convs (weight_g/weight_v)
     are fused into plain kernels. Every checkpoint key must be read or be a
     codebook buffer inference ignores (inited, cluster_size, embed_avg),
-    else ValueError."""
+    else ValueError; `strict=False` converts anyway, so that
+    `ckpt/verify_weights.py` can report the unread keys."""
     if not isinstance(state_dict, _RecordingDict):
         state_dict = _RecordingDict(state_dict)
     sd = state_dict
@@ -409,7 +410,7 @@ def convert_torch_encodec(state_dict, config: EncodecConfig) -> dict:
 
     _, ignorable = expected_torch_keys(n, config.n_q)
     leftovers = set(sd.keys()) - sd.consumed - ignorable
-    if leftovers:
+    if leftovers and strict:
         raise ValueError(
             f"convert_torch_encodec left {len(leftovers)} checkpoint key(s) unread "
             f"(layout mismatch?): {sorted(leftovers)[:8]}")

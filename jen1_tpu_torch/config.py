@@ -118,6 +118,8 @@ class ModelConfig:
     use_flash_attention: bool = True
     flash_min_seq_len: int = 1024
     tie_transformer_projections: bool = False
+    # recompute each down block, the bottleneck and each up block in the
+    # backward instead of storing their activations (torch.utils.checkpoint)
     remat: bool = False
 
     def __post_init__(self):
@@ -285,7 +287,6 @@ UNPORTED = {
         "use_snake": _MODEL_FEATURES, "use_stft": _MODEL_FEATURES,
         "use_stft_context": _MODEL_FEATURES, "stft_num_fft": _MODEL_FEATURES,
         "stft_hop_length": _MODEL_FEATURES,
-        "remat": "ROADMAP Queue 1, 'UNet encoder cache and encoder_reuse'",
     },
     "ConditionerConfig": {"int_config": _MODEL_FEATURES, "number_config": _MODEL_FEATURES},
     "LoraConfig": {name: ROADMAP_TRAINING for name in ("alpha", "targets", "base_ckpt")},

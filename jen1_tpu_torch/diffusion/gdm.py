@@ -6,13 +6,15 @@ Same tables (float64 on the host, stored fp32 on the device), objectives
 the timesteps and the CFG dropout bits of a loss can be handed in, so a
 test can feed both packages the same draws. The samplers are Python loops
 (the JAX `lax.scan`s); every draw goes through `initial_noise` (x_T) or
-`step_noise` (each step's noise), which a test can replace. All arrays are
-channels-last (B, L, C).
+`step_noise` (each step's noise), which a test can replace. DDIM and
+DPM-Solver++ take `encoder_reuse=k` (Faster-Diffusion encoder propagation):
+the first step of every k-step block runs the whole UNet and keeps its
+encoder cache, the other k - 1 run the decoder against it
+(`reuse_schedule`). All arrays are channels-last (B, L, C).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -51,6 +53,20 @@ def step_noise(x: torch.Tensor, generator: torch.Generator, index: int,
     """The noise of sampler step `index` (0 for the first step taken), of
     x's shape; U[0, 1) for DDPM under `uniform_noise_compat`."""
     return noise_like(x, generator, uniform)
+
+
+def reuse_schedule(steps: int, encoder_reuse: int, final_full: bool) -> list:
+    """Per sampler step, True where it runs the whole UNet (and refreshes the
+    encoder cache), False where it runs the decoder against the cache: the
+    first step of each `encoder_reuse`-step block. DDIM (`final_full=True`)
+    also runs the last step whole, since its x_start is the sample
+    (jen1_tpu/diffusion/gdm.py:357-412); DPM-Solver++ runs the steps after
+    its last whole block whole (jen1_tpu/diffusion/dpm_solver.py:90-133), so
+    when `encoder_reuse` divides `steps` its last step is decoder-only."""
+    k = max(1, int(encoder_reuse))
+    whole_blocks = steps // k * k
+    return [i % k == 0 or (final_full and i == steps - 1)
+            or (not final_full and i >= whole_blocks) for i in range(steps)]
 
 
 def time_pairs(num_timesteps: int, sampling_timesteps: int):
@@ -153,9 +169,17 @@ class GaussianDiffusion:
         dropout: bool,
         generator: Optional[torch.Generator] = None,
         cfg_bits: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """The denoiser with the CFG plumbing (gdm.py:160-190)."""
+        encoder_cache=None,
+        return_encoder_cache: bool = False,
+    ):
+        """The denoiser with the CFG plumbing (gdm.py:160-190). The encoder
+        cache arguments reach the model only when used, as JAX's `extra`
+        (gdm.py:173-174); with `return_encoder_cache` the result is
+        (output, cache)."""
         concat = conditioning.get("input_concat_cond")
+        extra = {}
+        if encoder_cache is not None or return_encoder_cache:
+            extra = dict(encoder_cache=encoder_cache, return_encoder_cache=return_encoder_cache)
         return model_fn(
             x,
             t,
@@ -170,6 +194,7 @@ class GaussianDiffusion:
             causal=causal,
             generator=generator,
             embedding_mask_bits=cfg_bits,
+            **extra,
         )
 
     def training_losses(
@@ -264,6 +289,17 @@ class GaussianDiffusion:
         )
         return self._predictions_from_out(model_out, x, t, clip_x_start)
 
+    def cached_predictions(self, model_fn, x, t, conditioning, *, cache, causal=False,
+                           generator=None):
+        """(pred_noise, x_start clipped, encoder cache) of one sampling call
+        that returns its encoder cache; decoder-only when `cache` is given."""
+        model_out, cache = self._call_model(
+            model_fn, x, t, conditioning, causal=causal,
+            dropout=self.dropout_during_sampling, generator=generator,
+            encoder_cache=cache, return_encoder_cache=True,
+        )
+        return (*self._predictions_from_out(model_out, x, t, True), cache)
+
     @torch.no_grad()
     def ddim_sample(
         self,
@@ -275,23 +311,39 @@ class GaussianDiffusion:
         device,
         causal: bool = False,
         init_data: Optional[torch.Tensor] = None,
+        return_all_timesteps: bool = False,
+        encoder_reuse: int = 1,
     ) -> torch.Tensor:
         """DDIM (gdm.py:285-438) over `sampling_timesteps` steps, x_start
         clipped to [-1, 1]. The step's scalars are fp32, computed on the
         host as the JAX scan computes them; each step draws its noise (used
-        where eta > 0)."""
+        where eta > 0). `return_all_timesteps` stacks x_T and every step's
+        result (S + 1, ...). encoder_reuse > 1 runs the UNet's decoder alone
+        on the steps `reuse_schedule(S, k, final_full=True)` marks, against
+        the cache of the last whole forward."""
+        if encoder_reuse > 1 and return_all_timesteps:
+            raise ValueError("encoder_reuse>1 does not support return_all_timesteps")
         batch = shape[0]
         acp = self.alphas_cumprod_host
         eta = np.float32(self.ddim_sampling_eta)
         one = np.float32(1.0)
         audio = with_init_data(initial_noise(shape, generator, device), init_data)
-        for i, (time, time_next) in enumerate(
-                time_pairs(self.num_timesteps, self.sampling_timesteps)):
+        trajectory = [audio]
+        pairs = time_pairs(self.num_timesteps, self.sampling_timesteps)
+        whole = reuse_schedule(len(pairs), encoder_reuse, final_full=True)
+        cache = None
+        for i, (time, time_next) in enumerate(pairs):
             time_cond = torch.full((batch,), time, dtype=torch.long, device=device)
-            pred_noise, x_start = self.model_predictions(
-                model_fn, audio, time_cond, conditioning, clip_x_start=True,
-                causal=causal, generator=generator,
-            )
+            if encoder_reuse > 1:
+                pred_noise, x_start, cache = self.cached_predictions(
+                    model_fn, audio, time_cond, conditioning,
+                    cache=None if whole[i] else cache, causal=causal, generator=generator,
+                )
+            else:
+                pred_noise, x_start = self.model_predictions(
+                    model_fn, audio, time_cond, conditioning, clip_x_start=True,
+                    causal=causal, generator=generator,
+                )
             alpha, alpha_next = acp[time], acp[max(time_next, 0)]
             sigma = eta * np.sqrt((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha))
             c = np.sqrt(one - alpha_next - sigma * sigma)
@@ -301,7 +353,9 @@ class GaussianDiffusion:
             else:
                 audio = (x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
                          + float(sigma) * noise)
-        return audio
+            if return_all_timesteps:
+                trajectory.append(audio)
+        return torch.stack(trajectory) if return_all_timesteps else audio
 
     @torch.no_grad()
     def p_sample_loop(
@@ -314,12 +368,15 @@ class GaussianDiffusion:
         device,
         causal: bool = False,
         init_data: Optional[torch.Tensor] = None,
+        return_all_timesteps: bool = False,
     ) -> torch.Tensor:
         """Ancestral DDPM over all `num_timesteps` (gdm.py:440-481), x_start
         clipped to [-1, 1]. Step i runs t = T - 1 - i; the JAX stream folds
-        t, not i, into its key."""
+        t, not i, into its key. `return_all_timesteps` stacks x_T and every
+        step's result."""
         batch = shape[0]
         audio = with_init_data(initial_noise(shape, generator, device), init_data)
+        trajectory = [audio]
         for i, t in enumerate(range(self.num_timesteps - 1, -1, -1)):
             time_cond = torch.full((batch,), t, dtype=torch.long, device=device)
             _, x_start = self.model_predictions(
@@ -329,7 +386,9 @@ class GaussianDiffusion:
             mean, _, log_var = self.q_posterior(x_start, audio, time_cond)
             noise = step_noise(audio, generator, i, self.uniform_noise_compat)
             audio = mean + torch.exp(0.5 * log_var) * noise if t > 0 else mean
-        return audio
+            if return_all_timesteps:
+                trajectory.append(audio)
+        return torch.stack(trajectory) if return_all_timesteps else audio
 
     def sample(
         self,
@@ -343,28 +402,43 @@ class GaussianDiffusion:
         mode: str = "scan",
         encoder_reuse: int = 1,
         init_data: Optional[torch.Tensor] = None,
+        return_all_timesteps: bool = False,
     ) -> torch.Tensor:
         """DDIM iff sampling_timesteps < num_timesteps, else DDPM
         (gdm.py:581-666). mode 'scan' and 'stepwise' are one Python loop
         here (the JAX package's two are numerically identical, :498-499);
         'dpm++' runs DPM-Solver++(2M) (`diffusion/dpm_solver.py`). Every
-        sampler starts from x_T + init_data when it is given."""
+        sampler starts from x_T + init_data when it is given.
+        encoder_reuse > 1 needs DDIM ('scan') or 'dpm++', as in JAX."""
         if mode not in ("scan", "stepwise", "dpm++"):
             raise ValueError(f"mode must be 'scan', 'stepwise' or 'dpm++', got {mode!r}")
         if encoder_reuse > 1:
-            raise NotImplementedError(
-                "encoder_reuse > 1 needs the UNet encoder cache, which is not ported yet "
-                "(ROADMAP Queue 1, 'UNet encoder cache and encoder_reuse')")
+            # checked before the dispatch, so that no mode ignores the flag
+            if mode == "stepwise":
+                raise ValueError(
+                    "encoder_reuse>1 requires mode='scan' or 'dpm++'; the "
+                    "stepwise sampler does not implement encoder propagation")
+            if not self.is_ddim_sampling and mode != "dpm++":
+                raise ValueError("encoder_reuse is implemented for DDIM sampling")
+        common = dict(device=device, causal=causal, init_data=init_data)
         if mode == "dpm++":
             from jen1_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_2m
 
-            sampler = functools.partial(dpm_solver_pp_2m, self)
-        elif mode == "stepwise" and not self.is_ddim_sampling:
-            raise ValueError("mode='stepwise' implements DDIM")
-        else:
-            sampler = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
-        return sampler(model_fn, shape, conditioning, generator, device=device, causal=causal,
-                       init_data=init_data)
+            if return_all_timesteps:
+                raise ValueError("mode='dpm++' does not return all timesteps")
+            return dpm_solver_pp_2m(self, model_fn, shape, conditioning, generator,
+                                    encoder_reuse=encoder_reuse, **common)
+        if mode == "stepwise":
+            if not self.is_ddim_sampling:
+                raise ValueError("mode='stepwise' implements DDIM")
+            if return_all_timesteps:
+                raise ValueError("mode='stepwise' does not return all timesteps")
+        if self.is_ddim_sampling:
+            return self.ddim_sample(model_fn, shape, conditioning, generator,
+                                    return_all_timesteps=return_all_timesteps,
+                                    encoder_reuse=encoder_reuse, **common)
+        return self.p_sample_loop(model_fn, shape, conditioning, generator,
+                                  return_all_timesteps=return_all_timesteps, **common)
 
 
 def create_gaussian_diffusion(

@@ -1,17 +1,22 @@
 """1-D UNet denoiser with classifier-free guidance, channels-last (B, L, C)
 (port of jen1_tpu/models/unet.py).
 
-Not ported yet: the encoder cache (`encoder_cache` /
-`return_encoder_cache`) and STFT mode.
+The encoder cache (`encoder_cache` / `return_encoder_cache`) carries the
+pre-bottleneck feature and the skips of levels 1..n from a full forward to
+decoder-only forwards (Faster-Diffusion encoder propagation, the samplers'
+`encoder_reuse`). `remat` recomputes each down block, the bottleneck and
+each up block in the backward (`torch.utils.checkpoint`). Not ported yet:
+STFT mode.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from jen1_tpu_torch.models.blocks import (
     BottleneckBlock1d,
@@ -24,6 +29,11 @@ from jen1_tpu_torch.models.blocks import (
 )
 from jen1_tpu_torch.ops.embeddings import FixedEmbedding, TimePositionalEmbedding, rand_bool
 from jen1_tpu_torch.ops.linear import Linear
+
+
+# (pre-bottleneck feature, per-level skips of levels 1..n): a plain tuple of
+# tensors, the same structure from a full and a decoder-only forward
+EncoderCache = Tuple[torch.Tensor, Tuple[Tuple[torch.Tensor, ...], ...]]
 
 
 class UNet1d(nn.Module):
@@ -60,9 +70,11 @@ class UNet1d(nn.Module):
         tie_transformer_projections: bool = False,
         use_flash_attention: bool = False,
         flash_min_seq_len: int = 512,
+        remat: bool = False,
     ):
         super().__init__()
         n = len(multipliers) - 1
+        self.remat = remat
         assert len(factors) == n and len(num_blocks) == n and len(attentions) >= n
         self.num_layers = n
         self.use_context_time = use_context_time
@@ -146,6 +158,14 @@ class UNet1d(nn.Module):
         mapping = F.gelu(self.to_mapping_1(mapping))
         return F.gelu(self.to_mapping_2(mapping))
 
+    def _block(self, block: nn.Module, *args, **kw):
+        """One down, bottleneck or up block; under `remat` with grad enabled
+        its activations are recomputed in the backward instead of stored
+        (jen1_tpu/models/unet.py:249-343, nn.remat per block)."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kw)
+        return block(*args, **kw)
+
     def forward(
         self,
         x: torch.Tensor,  # (B, L, in_channels)
@@ -156,7 +176,16 @@ class UNet1d(nn.Module):
         embedding: Optional[torch.Tensor] = None,  # (B, M, E)
         embedding_mask: Optional[torch.Tensor] = None,  # (B, M)
         causal: bool = False,
-    ) -> torch.Tensor:
+        encoder_cache: Optional[EncoderCache] = None,
+        return_encoder_cache: bool = False,
+    ):
+        """With `encoder_cache` (x_pre_bottleneck, skips of levels 1..n) the
+        down stack is skipped: the patcher still runs on the current x (its
+        output is skip0), the bottleneck and the up stack run against the
+        cached features (jen1_tpu/models/unet.py:159-168, 215-223). With
+        `return_encoder_cache` the forward returns (out, cache); a full
+        forward's cache is its own pre-bottleneck feature and skips, a
+        decoder-only forward's the cache it was given."""
         channels = self._get_channels(channels_list, 0)
         if channels is not None:
             x = torch.cat([x, channels.to(x.dtype)], dim=-1)
@@ -170,19 +199,26 @@ class UNet1d(nn.Module):
 
         x = self.to_in(x, mapping=mapping)
         skips_list: List[List[torch.Tensor]] = [[x]]
-        for i in range(self.num_layers):
-            x, skips = getattr(self, f"downsample{i}")(
-                x, mapping=mapping, channels=self._get_channels(channels_list, i + 1), **ctx
-            )
-            skips_list.append(skips)
-        x = self.bottleneck(x, mapping=mapping, **ctx)
+        if encoder_cache is not None:
+            x, cached_skips = encoder_cache
+            skips_list += [list(s) for s in cached_skips]
+            cache = encoder_cache
+        else:
+            for i in range(self.num_layers):
+                x, skips = self._block(
+                    getattr(self, f"downsample{i}"), x, mapping=mapping,
+                    channels=self._get_channels(channels_list, i + 1), **ctx,
+                )
+                skips_list.append(skips)
+            cache = (x, tuple(tuple(s) for s in skips_list[1:]))
+        x = self._block(self.bottleneck, x, mapping=mapping, **ctx)
         for j in range(self.num_layers):
-            x = getattr(self, f"upsample{j}")(
-                x, skips=skips_list.pop(), mapping=mapping, **ctx
-            )
+            x = self._block(getattr(self, f"upsample{j}"), x, skips=skips_list.pop(),
+                            mapping=mapping, **ctx)
         (skip0,) = skips_list.pop()
         x, skip0 = _crop_to_common_length(x, skip0)
-        return self.to_out(x + skip0, mapping=mapping)
+        out = self.to_out(x + skip0, mapping=mapping)
+        return (out, cache) if return_encoder_cache else out
 
 
 class UNetCFG1d(nn.Module):
@@ -229,11 +265,22 @@ class UNetCFG1d(nn.Module):
         causal: bool = False,
         generator: Optional[torch.Generator] = None,
         embedding_mask_bits: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        encoder_cache: Optional[EncoderCache] = None,
+        return_encoder_cache: bool = False,
+    ):
         """CFG dropout (training): with embedding_mask_proba > 0 each
         example's embedding is replaced by the null embedding where its bit
         is set. The (B, 1, 1) bits are `embedding_mask_bits` when given,
-        else drawn as rand_bool(generator, (B, 1, 1), proba)."""
+        else drawn as rand_bool(generator, (B, 1, 1), proba).
+
+        `encoder_cache` / `return_encoder_cache` pass to the UNet
+        (jen1_tpu/models/unet.py:485-500); under guidance the cache lives
+        in the CFG-doubled batch, so it needs batch_cfg=True."""
+        cache_kw = dict(encoder_cache=encoder_cache, return_encoder_cache=return_encoder_cache)
+        if (encoder_cache is not None or return_encoder_cache) and (
+                embedding_scale != 1.0 and not batch_cfg):
+            raise ValueError("encoder propagation with CFG requires batch_cfg=True "
+                             "(the cache lives in the CFG-doubled batch)")
         b = embedding.shape[0]
         if self.to_time_embedding is not None:
             token = F.gelu(self.to_time_embedding(time.float())).to(embedding.dtype)
@@ -251,13 +298,15 @@ class UNetCFG1d(nn.Module):
         kw = dict(features=features, channels_list=channels_list, causal=causal)
 
         if embedding_scale == 1.0:
-            return self.unet(x, time, embedding=embedding, embedding_mask=embedding_mask, **kw)
+            return self.unet(x, time, embedding=embedding, embedding_mask=embedding_mask,
+                             **kw, **cache_kw)
 
+        cache = None
         if batch_cfg:
             def twice(a):
                 return None if a is None else torch.cat([a, a], dim=0)
 
-            out, out_masked = self.unet(
+            batch_out = self.unet(
                 twice(x), twice(time),
                 embedding=torch.cat([embedding, fixed_embedding], dim=0),
                 embedding_mask=twice(embedding_mask),
@@ -265,7 +314,11 @@ class UNetCFG1d(nn.Module):
                 channels_list=(None if channels_list is None
                                else [twice(c) for c in channels_list]),
                 causal=causal,
-            ).chunk(2, dim=0)
+                **cache_kw,
+            )
+            if return_encoder_cache:
+                batch_out, cache = batch_out
+            out, out_masked = batch_out.chunk(2, dim=0)
         else:
             out = self.unet(x, time, embedding=embedding, embedding_mask=embedding_mask, **kw)
             out_masked = self.unet(
@@ -280,7 +333,7 @@ class UNetCFG1d(nn.Module):
             cfg_std = cfg32.std(dim=-1, keepdim=True, correction=1)
             mixed = scale_phi * (cfg32 * (out_std / cfg_std)) + (1.0 - scale_phi) * cfg32
             out_cfg = mixed.to(out_cfg.dtype)
-        return out_cfg
+        return (out_cfg, cache) if return_encoder_cache else out_cfg
 
 
 def unet_from_model_config(mc) -> UNetCFG1d:
@@ -311,4 +364,5 @@ def unet_from_model_config(mc) -> UNetCFG1d:
         tie_transformer_projections=mc.tie_transformer_projections,
         use_flash_attention=mc.use_flash_attention,
         flash_min_seq_len=mc.flash_min_seq_len,
+        remat=mc.remat,
     )

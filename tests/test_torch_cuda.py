@@ -397,26 +397,20 @@ def test_codec_encode_on_cuda_matches_cpu(cuda_device):
     assert torch.equal(card.quantizer.encode(z.to(cuda_device)).cpu(), codes)
 
 
-def test_generate_music_cont_on_cuda_matches_cpu(cuda_device, monkeypatch):
-    """A tiny Jen1 (tiny_test_config widths, one head, flash_min_seq_len 128)
-    continues the first 6 s of a 13 s clip on the card and on the CPU with
-    the same weights and x_T: rtol 2e-2 / atol 2e-3, and every K1 launch of
-    the card's level-1 attention is causal (fp32, so the scalar route)."""
+def tiny_jen1s():
+    """{"cpu": Jen1, "cuda": Jen1} of tiny_test_config widths (one head,
+    flash_min_seq_len 128) with the same UNet, T5 and codec weights."""
     import dataclasses
-
-    import numpy as np
 
     from jen1_tpu_torch.api.generation import Jen1
     from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
     from jen1_tpu_torch.config import tiny_test_config
-    from jen1_tpu_torch.diffusion import vdm
 
     cfg = tiny_test_config()
     cfg.model_config = dataclasses.replace(
         cfg.model_config, use_flash_attention=True, flash_min_seq_len=128, attention_heads=1)
-    codecs = tiny_codecs()
     jen1 = {}
-    for dev, codec in zip(("cpu", "cuda"), codecs):
+    for dev, codec in zip(("cpu", "cuda"), tiny_codecs()):
         t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
                            device=dev)
         jen1[dev] = Jen1(sample_rate=1600, config=cfg, codec=codec,
@@ -424,6 +418,19 @@ def test_generate_music_cont_on_cuda_matches_cpu(cuda_device, monkeypatch):
     jen1["cuda"].model.load_state_dict(jen1["cpu"].model.state_dict())
     jen1["cuda"].conditioner.conditioners["prompt"].load_state_dict(
         jen1["cpu"].conditioner.conditioners["prompt"].state_dict())
+    return jen1
+
+
+def test_generate_music_cont_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """A tiny Jen1 (tiny_test_config widths, one head, flash_min_seq_len 128)
+    continues the first 6 s of a 13 s clip on the card and on the CPU with
+    the same weights and x_T: rtol 2e-2 / atol 2e-3, and every K1 launch of
+    the card's level-1 attention is causal (fp32, so the scalar route)."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import vdm
+
+    jen1 = tiny_jen1s()
     x_t = torch.randn((1, 520, 8), generator=torch.Generator().manual_seed(7))
     monkeypatch.setattr(vdm, "initial_noise", lambda shape, generator, device: x_t.to(device))
     g = np.random.default_rng(5)
@@ -437,3 +444,53 @@ def test_generate_music_cont_on_cuda_matches_cpu(cuda_device, monkeypatch):
     assert out.shape == ref.shape == (1, 2, 13 * 1600) and np.isfinite(out).all()
     assert np.allclose(out, ref, rtol=2e-2, atol=2e-3), float(np.abs(out - ref).max())
     assert launched[0] > 0 and launched[1] == launched[0]
+
+
+@pytest.mark.parametrize("mode", ["scan", "dpm++"])
+def test_encoder_reuse_on_cuda_matches_cpu(cuda_device, monkeypatch, mode):
+    """GDM with encoder_reuse=2 over 5 steps of the tiny Jen1 (13 s, 520
+    latent frames) on the card against the CPU, the same x_T and step
+    noise: rtol 2e-2 / atol 2e-3; K1 runs twice per whole UNet forward and
+    once per decoder-only one (DDIM: 3 whole, 2 decoder-only; DPM-Solver++:
+    3 and 2 as well, its fifth step a remainder step)."""
+    import numpy as np
+
+    from jen1_tpu_torch.diffusion import gdm
+
+    jen1 = tiny_jen1s()
+    stream = torch.Generator().manual_seed(7)
+    x_t = torch.randn((1, 520, 8), generator=stream)
+    noises = [torch.randn((1, 520, 8), generator=stream) for _ in range(5)]
+    monkeypatch.setattr(gdm, "initial_noise", lambda shape, generator, device: x_t.to(device))
+    monkeypatch.setattr(gdm, "step_noise",
+                        lambda x, generator, index, uniform=False: noises[index].to(x.device))
+    kw = dict(seed=5, steps=5, seconds=13, use_gdm=True, sampler_mode=mode, encoder_reuse=2)
+    ref = jen1["cpu"].generate("a beautiful song", **kw)
+    before = fa.LAUNCHES
+    out = jen1["cuda"].generate("a beautiful song", **kw)
+    whole = gdm.reuse_schedule(5, 2, final_full=mode == "scan")
+    assert fa.LAUNCHES - before == 2 * sum(whole) + (5 - sum(whole)) == 8
+    assert out.shape == ref.shape == (1, 2, 13 * 1600) and np.isfinite(out).all()
+    assert np.allclose(out, ref, rtol=2e-2, atol=2e-3), float(np.abs(out - ref).max())
+
+
+def test_service_round_trip_on_cuda(cuda_device):
+    """The tiny card Jen1 behind GenerationService: a seeded request comes
+    back as a host array equal, bit for bit, to lane 0 of generate() with
+    the same padded prompts and seed; the padding lanes are dropped."""
+    import numpy as np
+
+    from jen1_tpu_torch.serve import GenerationService
+
+    card = tiny_jen1s()["cuda"]
+    svc = GenerationService(card, max_batch=3, max_wait_ms=5.0, default_seconds=2.0,
+                            default_steps=3)
+    try:
+        audio = svc.submit("seeded tune", seed=41, timeout=600)
+    finally:
+        svc.close()
+    direct = card.generate(["seeded tune", "", ""], seed=41, steps=3, batch_size=3,
+                           seconds=2.0, use_gdm=True)
+    assert isinstance(audio, np.ndarray) and audio.shape == (2, 3200)
+    np.testing.assert_array_equal(audio, direct[0])
+    assert svc.stats["padded_lanes"] == 2 and svc.stats["errors"] == 0

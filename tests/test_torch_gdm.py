@@ -107,10 +107,16 @@ def test_stepwise_is_the_scan_loop(unets):
 
 
 def test_unported_and_invalid_modes_raise():
+    """encoder_reuse is refused where JAX refuses it (stepwise mode, DDPM),
+    with JAX's ValueErrors, as is an unknown mode."""
     _, pconf = configs(dict(steps=8))
     pdiff = port_gdm.create_gaussian_diffusion(pconf, sampling_steps=2)
-    with pytest.raises(NotImplementedError, match="UNet encoder cache and encoder_reuse"):
-        pdiff.sample(None, (1, 4, 2), {}, None, device="cpu", encoder_reuse=2)
+    with pytest.raises(ValueError, match="requires mode='scan' or 'dpm\\+\\+'"):
+        pdiff.sample(None, (1, 4, 2), {}, None, device="cpu", mode="stepwise",
+                     encoder_reuse=2)
+    ddpm = port_gdm.create_gaussian_diffusion(pconf, sampling_steps=8)
+    with pytest.raises(ValueError, match="implemented for DDIM sampling"):
+        ddpm.sample(None, (1, 4, 2), {}, None, device="cpu", encoder_reuse=2)
     with pytest.raises(ValueError):
         pdiff.sample(None, (1, 4, 2), {}, None, device="cpu", mode="euler")
 

@@ -68,9 +68,13 @@ def test_int16_output_and_seed_dependence(pair):
 
 
 def test_unported_arguments_raise(pair):
+    """encoder_reuse and output_transport are ported: what JAX refuses of
+    them raises its ValueError (reuse with stepwise DDIM or with VDM, an
+    unknown transport), as do the other invalid arguments."""
     _, pj = pair
-    for kw in ({"use_gdm": True, "encoder_reuse": 2}, {"output_transport": "device"}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"use_gdm": True, "encoder_reuse": 2, "sampler_mode": "stepwise"},
+               {"output_transport": "disk"}):
+        with pytest.raises(ValueError):
             pj.generate("x", seed=1, steps=1, seconds=1, **kw)
     for kw in ({"output_dtype": "int8"}, {"sampler_mode": "dpm++"},
                {"sampler_mode": "euler", "use_gdm": True}, {"encoder_reuse": 2},

@@ -52,12 +52,20 @@ LONGFORM_CKPT_MODULES = [
 ]
 
 
+# the serving slice's modules
+SERVING_MODULES = [
+    "jen1_tpu_torch/serve.py", "jen1_tpu_torch/api/batch_generate.py",
+    "jen1_tpu_torch/ckpt/verify_weights.py", "jen1_tpu_torch/models/unet.py",
+]
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     found = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert set(TRAINING_MODULES) <= found
     assert set(INT8_GDM_MODULES) <= found
     assert set(LONGFORM_CKPT_MODULES) <= found
+    assert set(SERVING_MODULES) <= found
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -74,6 +82,29 @@ def test_jen1_default_device_raises_without_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Jen1()
+
+
+@pytest.mark.parametrize("entry", ["serve", "batch_generate", "verify_weights"])
+def test_new_entry_points_default_to_the_card(entry, tmp_path):
+    """The serving CLIs build their Jen1 on the card unless told otherwise:
+    without one they raise before doing any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("x\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "serve":
+            from jen1_tpu_torch.serve import main
+
+            main(["--port", "0"])
+        elif entry == "batch_generate":
+            from jen1_tpu_torch.api.batch_generate import main
+
+            main(["--prompts", str(prompts), "--out", str(tmp_path / "out")])
+        else:
+            from jen1_tpu_torch.ckpt.verify_weights import main
+
+            main(["--t5-weights", str(tmp_path / "t5.pt")])
 
 
 def test_build_trainer_default_device_raises_without_card():

@@ -159,15 +159,14 @@ def test_latent_frames_match_jax_encoders(pair, mode):
     (dict(task="music_inpaint", init_audio=CLIP), AssertionError),
     (dict(task="music_remix"), ValueError),
     (dict(encode_mode="segmented"), ValueError),
-    (dict(use_gdm=True, encoder_reuse=2), NotImplementedError),
-    (dict(output_transport="device"), NotImplementedError),
+    (dict(use_gdm=True, encoder_reuse=2, sampler_mode="stepwise"), ValueError),
+    (dict(encoder_reuse=2), ValueError),
 ])
 def test_generate_refusals(pair, kw, exc):
-    """A missing inpainting_scope and an unknown task fail as in the JAX
-    package; what the port does not have yet names its ROADMAP item."""
+    """A missing inpainting_scope, an unknown task or encode mode, and
+    encoder_reuse outside GDM 'scan' / 'dpm++' fail as in the JAX package."""
     _, pj = pair
-    match = "ROADMAP Queue 1, '" if exc is NotImplementedError else None
-    with pytest.raises(exc, match=match):
+    with pytest.raises(exc):
         pj.generate(PROMPT, seed=1, steps=1, seconds=1, **kw)
 
 

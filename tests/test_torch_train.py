@@ -18,6 +18,7 @@ Bars:
   * optimizers over 3 updates (with a skipped non-finite step): rtol 1e-5.
 """
 
+import copy
 import dataclasses
 import json
 
@@ -46,7 +47,9 @@ from jen1_tpu_torch.train import fused_optim, tasks
 from jen1_tpu_torch.train import train as train_cli
 from jen1_tpu_torch.train.optim import make_optimizer
 from jen1_tpu_torch.train.trainer import StepDraws, UnifiedMultiTaskTrainer
-from torch_port_util import assert_close, flash_model_configs, load, randn, random_params, rng
+from torch_port_util import (
+    assert_close, flash_model_configs, load, one_torch_thread, randn, random_params, rng,
+)
 
 LOSS = dict(rtol=2e-3, atol=0.0)
 LEAF_RTOL = 5e-3
@@ -283,13 +286,17 @@ def test_gdm_buffers_match(models):
 # ------------------------------------------------------ (d) train step
 
 
-@pytest.mark.parametrize("coin", [0, 1], ids=["text_guided_bidir", "text_guided_causal"])
-def test_train_step_matches_jax(models, coin):
+def jax_and_port_step(models, coin, remat=False):
     """One multi-task GDM step at the tiny flash config (fp32, L = 520):
     JAX's value_and_grad of _multi_task_loss against the port's train_step
-    with JAX's draws injected. text_guided joins the bidirectional group
-    (coin 0) or the causal one (coin 1)."""
+    with JAX's draws injected, both with `remat`; asserts the train bars and
+    returns the port's model (holding its gradients) and metrics."""
     jcfg, pcfg, jmodel, params, pmodel = models
+    if remat:
+        jcfg, pcfg = copy.deepcopy(jcfg), copy.deepcopy(pcfg)
+        jcfg.model_config = dataclasses.replace(jcfg.model_config, remat=True)
+        pcfg.model_config = dataclasses.replace(pcfg.model_config, remat=True)
+        jmodel = jax_unet(jcfg.model_config)
     jtrainer = JaxTrainer(jcfg, jmodel, jax_gdm(jcfg.diffusion_config.gaussian_diffusion))
     model = port_unet(pcfg.model_config)
     model.load_state_dict(pmodel.state_dict())
@@ -319,12 +326,75 @@ def test_train_step_matches_jax(models, coin):
     assert_close(metrics["grad_norm"], optax.global_norm(grads), **LOSS)
 
     ref_grads = load(port_unet(pcfg.model_config), {"params": grads})
-    refs = dict(ref_grads.named_parameters())
+    assert_grads_close(model, dict(ref_grads.named_parameters()))
+    return model, metrics
+
+
+def assert_grads_close(model, refs):
+    """Every gradient leaf of `model` within LEAF_RTOL of its reference."""
     floor = LEAF_FLOOR * max(float(r.detach().abs().max()) for r in refs.values())
     for name, p in model.named_parameters():
         ref = refs[name].detach()
         bar = LEAF_RTOL * max(float(ref.abs().max()), floor)
         assert float((p.grad - ref).abs().max()) <= bar, name
+
+
+@pytest.mark.parametrize("coin", [0, 1], ids=["text_guided_bidir", "text_guided_causal"])
+def test_train_step_matches_jax(models, coin):
+    """text_guided joins the bidirectional group (coin 0) or the causal one
+    (coin 1)."""
+    jax_and_port_step(models, coin)
+
+
+def test_remat_train_step_matches_jax(models):
+    """ModelConfig.remat: JAX's nn.remat step against the port's
+    torch.utils.checkpoint step, at the train bars."""
+    with one_torch_thread():
+        jax_and_port_step(models, 0, remat=True)
+
+
+def test_remat_step_equals_plain_step(models, monkeypatch):
+    """The same port step with and without remat: equal losses and
+    gradients at the train bars. The recompute runs each flash forward
+    again in the backward: 4 -> 8 forward calls per step (two causal
+    groups x the two transformers at 130 frames), the backward calls stay
+    4."""
+    from jen1_tpu_torch.ops import flash_attention as port_fa
+
+    _, pcfg, _, _, pmodel = models
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = port_fa.flash_attention_reference, port_fa.flash_attention_bwd_reference
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(port_fa, "flash_attention_reference", counting("fwd", fwd))
+    monkeypatch.setattr(port_fa, "flash_attention_bwd_reference", counting("bwd", bwd))
+    batch = {k: torch.from_numpy(v) for k, v in step_batch(pcfg.model_config, L_FLASH).items()}
+    results = {}
+    for remat in (False, True):
+        cfg = copy.deepcopy(pcfg)
+        cfg.model_config = dataclasses.replace(cfg.model_config, remat=remat)
+        model = port_unet(cfg.model_config)
+        model.load_state_dict(pmodel.state_dict())
+        trainer = UnifiedMultiTaskTrainer(
+            cfg, model, create_gaussian_diffusion(cfg.diffusion_config.gaussian_diffusion),
+            device="cpu")
+        draws = trainer.draw_randoms(torch.Generator().manual_seed(3), (True, False, True),
+                                     tuple(batch["latents"].shape))
+        trainer.draw_randoms = lambda *args: draws
+        calls.update(fwd=0, bwd=0)
+        with one_torch_thread():
+            _, metrics = trainer.train_step(trainer.init_state(), batch, None, Coin(1))
+        results[remat] = (model, metrics, dict(calls))
+    (plain, m_plain, c_plain), (remat, m_remat, c_remat) = results[False], results[True]
+    assert (c_plain, c_remat) == ({"fwd": 4, "bwd": 4}, {"fwd": 8, "bwd": 4})
+    for k in m_plain:
+        assert_close(m_remat[k], m_plain[k], **LOSS)
+    assert_grads_close(remat, {n: p.grad for n, p in plain.named_parameters()})
 
 
 def test_draw_randoms_shapes():
@@ -551,7 +621,7 @@ def test_jax_config_json_loads(tmp_path, which):
 
 @pytest.mark.parametrize("key,value,field", [
     ("model_config.use_snake", True, None), ("model_config.use_stft", True, None),
-    ("model_config.stft_hop_length", 128, None), ("model_config.remat", True, None),
+    ("model_config.stft_hop_length", 128, None), ("model_config.use_stft_context", True, None),
     ("conditioner_config.int_config.max_val", 60, "conditioner_config.int_config"),
     ("lora_config.alpha", 8.0, None),
 ])
