@@ -94,7 +94,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    peak memory, max|diff| (0 expected: bf16 storage under
                    bf16 compute is bit-identical).
  16. reuse       - the same Jen1, GDM, 30 s, 100 steps: DDIM at encoder_reuse
-                   1, 2, 2, 1 and DPM-Solver++ at 2: walls, the relative L2
+                   1 and 2 and DPM-Solver++ at 2: walls, the relative L2
                    of each latent and audio from k = 1, K1 launches (200,
                    151, 150: reuse_schedule's count, all tensor-core); the
                    device busy seconds of a 10-step request at k = 1 and 2.
@@ -125,7 +125,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    steps with the same draws: losses and gradient leaves at
                    the train bars, walls and peak memory of every step,
                    K1/K2/K3 8/4/4 per remat step.
-The line before the last is the `{"kernels": [...]}` record; the last line
+ 20. small-data  - two WAV and one FLAC file (48 kHz stereo, sidecar prompts)
+                   written by the port's writers; the native decoders built
+                   from native/*.cpp; load_audio against the written samples;
+                   preprocess scan, and preprocess encode on the card against
+                   the CPU with one tiny codec.
+ 21. small-lora  - a tiny LoRATrainer (rank 4) takes two steps on the card and
+                   on the CPU with the same base, adapter and draws, plain and
+                   with remat: losses and adapter gradients, base unchanged;
+                   Jen1(ckpt_path=base, lora_path=run) generates, card vs CPU.
+ 22. small-composer - a tiny track_gen train step and a tiny generate_tracks
+                   with one context track, card vs CPU.
+ 23. lora        - LoRA at full width (longform_config(), rank 16, B=3, 30 s):
+                   three steps, K1/K2/K3 4/4/4 each on the tensor-core route;
+                   walls, peak memory, adapter and checkpoint bytes;
+                   Jen1(lora_path=...) load-and-merge wall and merged weights.
+ 24. wav-train   - four 30 s WAV files; train.run(dataset_dir=...) for 5
+                   steps with profile=True: encode and step walls, K1/K2/K3
+                   4/4/4 per step, the trace naming the port's kernels.
+ 25. composer    - Jen1(composer_config(4)).generate_tracks at 30 s, GDM DDIM
+                   cut to 20 steps, one context track: wall, peak memory, K1
+                   launches.
+The phases run in the order small-*, main .. serve, flagship, train, lora,
+wav-train, composer (small-data, small-lora and small-composer after
+small-serve). The line before the last is the `{"kernels": [...]}` record;
+the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
 
@@ -244,7 +268,7 @@ SMALL_LONG = dict(total_seconds=29, window_seconds=13, context_seconds=4, seed=5
 BF16_ORDER = ("fp32", "bf16")
 # encoder reuse at full width: DDIM requests at these k (k = 1 first and
 # last, to pair the walls), then DPM-Solver++ at REUSE_DPM_K
-REUSE_KS = (1, 2, 2, 1)
+REUSE_KS = (1, 2)  # each once, to keep the whole run well under ten minutes
 REUSE_DPM_K = 2
 # the tiny reuse cases: k x S (S % k == 0 and not) x compute dtype
 SMALL_REUSE_KS = (2, 3)
@@ -261,6 +285,15 @@ SERVE_SEED = 77
 # the tiny slice's codec: 1600 Hz, a 40-sample hop, a 2 x 16-entry RVQ
 TINY_CODEC = dict(sample_rate=1600, channels=2, dimension=8, n_filters=2, ratios=(5, 4, 2),
                   n_q=2, bins=16)
+# the LoRA, wav-train and composer phases (full width)
+LORA_RANK = 16
+LORA_ALPHA = 16.0
+LORA_STEPS = 3
+WAV_FILES = 4
+WAV_STEPS = 5
+COMPOSER_TRACKS = 4
+COMPOSER_STEPS = 20  # cut from 100 to keep the run's time
+COMPOSER_SECONDS = 30
 
 
 _START = time.perf_counter()
@@ -631,22 +664,32 @@ def time_cycled(torch, fn, args, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, args, iters: int) -> float:
+def device_ms(torch, fn, args, iters: int, attempts: int = 3) -> float:
     """Mean device time per call of `fn(*args[i % len(args)])`: the CUDA
     kernel time it launched, summed by torch.profiler, over `iters` calls.
     At K4's shapes a call's kernels take a few us, less than the host takes
-    to enqueue it, so CUDA events around back-to-back calls time the host."""
+    to enqueue it, so CUDA events around back-to-back calls time the host.
+    A window in which the profiler recorded no device event at all (it
+    happens, rarely, with kernels that did run) is measured again, up to
+    `attempts` windows; 0.0 if none recorded one, which the callers
+    refuse."""
     from torch.profiler import ProfilerActivity, profile
 
     for a in args[:3]:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*args[i % len(args)])
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) * 1e-3 / iters
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*args[i % len(args)])
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) * 1e-3 / iters
+        log(f"[kernels] the profiler recorded no device event in window {attempt} of "
+            f"{attempts} for {getattr(fn, '__name__', 'a call')}")
+    return 0.0
 
 
 def int8_kernel_row(torch) -> dict:
@@ -775,11 +818,12 @@ def time_backward(torch, F, fa, gen, clock_hz: float) -> list:
     return [rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"]]
 
 
-def tiny_pair(torch, dtype: str = "float32"):
+def tiny_pair(torch, dtype: str = "float32", cfg=None, codec=TINY_CODEC, **jen1_kw):
     """Two tiny Jen1s, on the CPU and on the card, with the same T5, UNet
     and codec weights: tiny_test_config widths, `dtype` compute (fp32 by
     default), one attention head and flash_min_seq_len 128, a 1600 Hz codec
-    with a 40-sample hop."""
+    with a 40-sample hop; or the config `cfg` and the codec `codec`.
+    `jen1_kw` (a checkpoint, an adapter) go to both constructors."""
     import dataclasses
 
     from jen1_tpu_torch.api.generation import Jen1
@@ -787,19 +831,20 @@ def tiny_pair(torch, dtype: str = "float32"):
     from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
     from jen1_tpu_torch.config import tiny_test_config
 
-    cfg = tiny_test_config()
-    # one head, so the level-1 transformer (16 channels) has head dim 16
-    cfg.model_config = dataclasses.replace(
-        cfg.model_config, use_flash_attention=True, flash_min_seq_len=128, attention_heads=1,
-        dtype=dtype,
-    )
-    codec_cfg = EncodecConfig(**TINY_CODEC)
+    if cfg is None:
+        cfg = tiny_test_config()
+        # one head, so the level-1 transformer (16 channels) has head dim 16
+        cfg.model_config = dataclasses.replace(
+            cfg.model_config, use_flash_attention=True, flash_min_seq_len=128,
+            attention_heads=1, dtype=dtype,
+        )
+    codec_cfg = EncodecConfig(**codec)
 
     def build(device):
         t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
                            device=device)
         return Jen1(sample_rate=1600, config=cfg, codec=EncodecModel(codec_cfg, device=device),
-                    conditioner=MultiConditioner({"prompt": t5}), device=device)
+                    conditioner=MultiConditioner({"prompt": t5}), device=device, **jen1_kw)
 
     cpu, card = build("cpu"), build("cuda")
     card.model.load_state_dict(cpu.model.state_dict())
@@ -1239,13 +1284,6 @@ def phase_small_train(torch) -> None:
     cfg = tiny_train_config()
     cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
     host = tiny_batch(cfg.model_config)
-
-    class Coin:
-        def __init__(self, value):
-            self.value = value
-
-        def integers(self, lo, hi):
-            return self.value
 
     for coin in (0, 1):
         card.model.load_state_dict(cpu.model.state_dict())
@@ -2250,8 +2288,7 @@ def phase_reuse(torch, jen1) -> int:
                                  f"tensor-core, backward) {counts}, want ({want}, {want}, 0)")
     finally:
         del jen1.codec.decode_latent_chunked
-    log(f"[reuse] peak device memory {torch.cuda.max_memory_allocated()} bytes; k=1 repeat "
-        f"max|diff| {float(np.abs(outs[0] - outs[len(REUSE_KS) - 1]).max()):.3e}")
+    log(f"[reuse] peak device memory {torch.cuda.max_memory_allocated()} bytes")
     for k in (1, 2):
         by_name = profile_window(torch, "reuse-profile", f"{PROFILE_STEPS}-step DDIM, k={k}",
                                  lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
@@ -2494,6 +2531,567 @@ def train_remat(torch, cfg, trainer, state, batch) -> tuple:
     return launched
 
 
+def move_draws(torch, draws, device):
+    """A StepDraws with every tensor moved to `device`."""
+    import dataclasses
+
+    from jen1_tpu_torch.train.trainer import StepDraws
+
+    return StepDraws(*[{k: v.to(device) if torch.is_tensor(v) else v
+                        for k, v in getattr(draws, f.name).items()}
+                       for f in dataclasses.fields(StepDraws)])
+
+
+class Coin:
+    """A host generator whose text_guided coin is fixed."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def integers(self, lo, hi):
+        return self.value
+
+
+def phase_small_data(torch) -> None:
+    """The data slice at a small size: two WAV files and one FLAC file, 48 kHz
+    stereo, with sidecar prompts, written by the port's own writers; the
+    native decoders built from native/*.cpp; load_audio against the written
+    samples (WAV: their 16-bit quantization, FLAC: exact, whole files and
+    a seek); `preprocess scan` (the durations); `preprocess encode` (1 s
+    windows at 1600 Hz, chunked) on the card and on the CPU with the same
+    tiny codec, every latent within the codec bar (1e-4)."""
+    import json
+
+    import numpy as np
+
+    from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
+    from jen1_tpu_torch.data import native_io, preprocess
+    from jen1_tpu_torch.data.audio_io import load_audio, write_wav
+    from jen1_tpu_torch.data.flac_write import write_flac
+
+    with scratch_dir() as d:
+        root = Path(d) / "corpus"
+        (root / "audios").mkdir(parents=True)
+        (root / "metadata").mkdir()
+        files = []
+        for i, (fmt, seconds) in enumerate((("wav", 2.5), ("flac", 2.0), ("wav", 1.5))):
+            clip = synthetic_clip(np, 40 + i, seconds, 48_000)
+            path = root / "audios" / f"take{i}.{fmt}"
+            (write_wav if fmt == "wav" else write_flac)(str(path), clip, 48_000)
+            (root / "metadata" / f"take{i}.json").write_text(json.dumps({"prompt": f"take {i}"}))
+            files.append((path, fmt, seconds, np.clip(clip, -1.0, 1.0)))
+        t0 = time.perf_counter()
+        libs = [native_io.get_lib(fmt) for fmt in ("wav", "flac")]
+        log(f"[small-data] decoders built and loaded in {time.perf_counter() - t0:.3f} s: "
+            f"{[lib._name for lib in libs]}")
+        for path, fmt, seconds, clip in files:
+            if fmt == "wav":
+                want = (clip * 32767.0).astype(np.int16) / np.float32(32768.0)
+            else:
+                want = np.round(np.minimum(clip, 1 - 2.0**-15) * 32768.0) / np.float32(32768.0)
+            got, sr = load_audio(str(path))
+            part, _ = load_audio(str(path), 1000, 700)
+            ok = (sr == 48_000 and got.shape == want.shape and np.array_equal(got, want)
+                  and np.array_equal(part, want[1000:1700]))
+            log(f"[small-data] load_audio {path.name}: {got.shape} at {sr} Hz, max|diff| "
+                f"{np.abs(got - want).max():.3e} against the written samples, seek "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: load_audio({path.name}) differs from what was "
+                                 "written")
+        preprocess.scan(str(root))
+        durations = np.load(root / "durations.npy")
+        if not np.allclose(durations, [f[2] for f in files]):
+            raise SystemExit(f"chip_smoke: preprocess scan durations {durations}")
+        cpu = EncodecModel(EncodecConfig(**TINY_CODEC), device="cpu").eval()
+        card = EncodecModel(EncodecConfig(**TINY_CODEC), device="cuda").eval()
+        card.load_state_dict(cpu.state_dict())
+        kw = dict(sample_duration=1.0, sr=1600, channels=2, batch_size=4)
+        n_cpu = preprocess.encode(str(root), str(root / "cpu"), codec=cpu, device="cpu", **kw)
+        t0 = time.perf_counter()
+        n_card = preprocess.encode(str(root), str(root / "card"), codec=card, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        names = sorted(p.name for p in (root / "cpu").glob("*.npy"))
+        errs = [np.abs(np.load(root / "card" / n) - np.load(root / "cpu" / n)).max()
+                for n in names]
+        ok = (n_cpu == n_card == 5 and names == sorted(p.name for p in
+                                                       (root / "card").glob("*.npy"))
+              and max(errs) <= 1e-4)
+        log(f"[small-data] preprocess scan {durations.tolist()} s; encode {n_card} windows on "
+            f"the card in {wall:.3f} s, card vs CPU max|diff| {max(errs):.3e} (bar 1e-4) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("chip_smoke: preprocess encode on the card disagrees with the CPU")
+
+
+def lora_tiny_trainers(torch, cfg):
+    """A tiny LoRATrainer on the CPU and one on the card with the same base
+    and the same adapter, its b drawn nonzero so that every factor gets a
+    gradient."""
+    from jen1_tpu_torch.train.train import build_trainer
+
+    cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for path, ab in cpu.adapter.items():
+            ab["b"].copy_(0.05 * torch.randn(ab["b"].shape, generator=g))
+            for k in ("a", "b"):
+                card.adapter[path][k].copy_(ab[k])
+    return cpu, card
+
+
+def adapter_grad_worst(card, cpu):
+    """(largest share of its bar, leaf name) over the adapter's gradient
+    leaves, each within 5e-3 * max|g_cpu| of the leaf (floored as in
+    worst_grad_leaf)."""
+    refs = [p.grad for p in cpu.params]
+    floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
+    worst, worst_name = 0.0, ""
+    for name, p, ref in zip(card._names(), card.params, refs):
+        ratio = (p.grad.cpu() - ref).abs().max().item() / (5e-3 * max(ref.abs().max().item(),
+                                                                      floor))
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def phase_small_lora(torch) -> None:
+    """LoRA at tiny widths (tiny_train_config: L = 520, so the level-1
+    transformer's 130 frames take K1/K2/K3 with head dim 8 padded to 16),
+    rank 4, alpha 8, the default targets: two steps of a LoRATrainer on the
+    card and on the CPU with the same base, adapter and draws, then the same
+    with remat=True. Losses within rtol 2e-3 and every adapter gradient leaf
+    within the train bar, card against CPU and remat against plain; the
+    card's base bit-unchanged. Then Jen1(ckpt_path=base, lora_path=run) on
+    both devices generates (VDM, 4 steps, 13 s, one x_T) at the sampler bar."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from jen1_tpu_torch.diffusion import vdm
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    base_cfg = tiny_train_config()
+    base_cfg.lora_config.rank, base_cfg.lora_config.alpha = 4, 8.0
+    host = tiny_batch(base_cfg.model_config)
+    card_grads = {}
+    with scratch_dir() as d:
+        for remat in (False, True):
+            cfg = copy.deepcopy(base_cfg)
+            cfg.model_config = dataclasses.replace(cfg.model_config, remat=remat)
+            cpu, card = lora_tiny_trainers(torch, cfg)
+            base = [p.detach().clone() for p in card.model.parameters()]
+            states = {"cpu": cpu.init_state(), "card": card.init_state()}
+            for step in range(2):
+                flags = cpu._causal_flags(Coin(step))
+                draws = type(cpu).draw_randoms(cpu, step_generator("cpu", 1, step), flags,
+                                               host["latents"].shape)
+                cpu.draw_randoms = lambda *a: draws
+                moved = move_draws(torch, draws, "cuda")
+                card.draw_randoms = lambda *a: moved
+                metrics = {}
+                before = launch_counts()
+                for name, tr in (("cpu", cpu), ("card", card)):
+                    batch = {k: torch.as_tensor(v, device=tr.device) for k, v in host.items()}
+                    states[name], m = tr.train_step(states[name], batch, None, Coin(step))
+                    metrics[name] = {k: float(v) for k, v in m.items()}
+                launched = [a - b for a, b in zip(launch_counts(), before)]
+                worst, worst_name = adapter_grad_worst(card, cpu)
+                grads = [p.grad.cpu() for p in card.params]
+                if remat:
+                    plain = card_grads[step]
+                    floor = GRAD_LEAF_FLOOR * max(g.abs().max().item() for g in plain)
+                    remat_worst = max((g - r).abs().max().item()
+                                      / (5e-3 * max(r.abs().max().item(), floor))
+                                      for g, r in zip(grads, plain))
+                else:
+                    card_grads[step], remat_worst = grads, 0.0
+                ok = (all(np.isclose(metrics["card"][k], metrics["cpu"][k], rtol=2e-3, atol=0)
+                          for k in metrics["cpu"] if k.startswith("loss"))
+                      and worst <= 1.0 and remat_worst <= 1.0 and min(launched) > 0)
+                log(f"[small-lora] remat={remat} step {step}: loss/train card "
+                    f"{metrics['card']['loss/train']:.6f} cpu {metrics['cpu']['loss/train']:.6f};"
+                    f" worst adapter gradient leaf {worst_name} at {worst:.4f} of its bar; "
+                    f"remat against plain {remat_worst:.4f} of the bar; K1/K2/K3 launches "
+                    f"{launched} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("chip_smoke: the tiny LoRA step on the card disagrees")
+            unchanged = all(torch.equal(a, p) for a, p in zip(base, card.model.parameters()))
+            if not unchanged or any(p.grad is not None for p in card.model.parameters()):
+                raise SystemExit("chip_smoke: the LoRA step changed the frozen base")
+        CheckpointManager(f"{d}/base").save(
+            0, {f"params/{n}": p for n, p in cpu.model.named_parameters()}, loss=0.0)
+        CheckpointManager(f"{d}/run").save(2, card.state_dict(states["card"]), loss=0.0)
+        cfg = tiny_train_config()
+        cfg.lora_config.alpha = 8.0
+        draw = vdm.initial_noise
+        vdm.initial_noise = lambda shape, generator, device: torch.randn(
+            tuple(shape), generator=torch.Generator().manual_seed(7)).to(device)
+        try:
+            jcpu, jcard = tiny_pair(torch, cfg=cfg, ckpt_path=f"{d}/base", lora_path=f"{d}/run")
+            kw = dict(seed=5, steps=4, seconds=13)
+            ref = jcpu.generate("a merged song", **kw)
+            out = jcard.generate("a merged song", **kw)
+        finally:
+            vdm.initial_noise = draw
+    err = float(np.abs(out - ref).max())
+    ok = out.shape == ref.shape and np.allclose(out, ref, rtol=2e-2, atol=2e-3)
+    log(f"[small-lora] Jen1(ckpt_path=base, lora_path=run) generate card vs CPU: scale "
+        f"{jcard.lora_scale}, max|diff|={err:.3e} (rtol 2e-2, atol 2e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the LoRA-merged generate() on the card disagrees")
+
+
+def phase_small_composer(torch) -> None:
+    """Composer at tiny widths (tiny_composer_test_config(2) with the flash
+    path, 4 latent dims per track): one train step of the four tasks,
+    track_gen among them (a draw that keeps one of the two tracks), on the
+    card against the CPU with the same draws (the small-train bars); then
+    generate_tracks (GDM DDIM, 4 steps, 13 s, track 0 given as a clip) on
+    both with the same x_T and step noise, at the sampler bar."""
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.config import tiny_composer_test_config
+    from jen1_tpu_torch.diffusion import gdm
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    cfg = tiny_composer_test_config(2)
+    cfg.model_config = dataclasses.replace(cfg.model_config, use_flash_attention=True,
+                                           flash_min_seq_len=128)
+    cfg.conditioner_config.t5_config.t5_model_name = "tiny-test"
+    cfg.conditioner_config.t5_config.max_length = cfg.model_config.context_embedding_max_length
+    cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    g = np.random.default_rng(1)
+    mc = cfg.model_config
+    m = mc.context_embedding_max_length
+    host = {"latents": g.standard_normal((4, 520, mc.in_channels)).astype(np.float32),
+            "text_emb": g.standard_normal((4, m, mc.context_embedding_features))
+            .astype(np.float32),
+            "text_mask": np.ones((4, m), bool)}
+    flags = cpu._causal_flags(Coin(1))
+    draws = type(cpu).draw_randoms(cpu, step_generator("cpu", 9, 0), flags,
+                                   host["latents"].shape)
+    cpu.draw_randoms = lambda *a: draws
+    moved = move_draws(torch, draws, "cuda")
+    card.draw_randoms = lambda *a: moved
+    metrics = {}
+    for name, tr in (("cpu", cpu), ("card", card)):
+        batch = {k: torch.as_tensor(v, device=tr.device) for k, v in host.items()}
+        _, mt = tr.train_step(tr.init_state(), batch, None, Coin(1))
+        metrics[name] = {k: float(v) for k, v in mt.items()}
+    worst, worst_name = worst_grad_leaf(card.model, [p.grad for p in cpu.model.parameters()])
+    ok = ("loss_track_gen/train" in metrics["card"] and worst <= 1.0
+          and all(np.isclose(metrics["card"][k], metrics["cpu"][k], rtol=2e-3, atol=0)
+                  for k in metrics["cpu"] if k.startswith("loss")))
+    log(f"[small-composer] track_gen train step card vs CPU: keep-bits "
+        f"{draws.track_bits['track_gen'].int().tolist()}; losses card "
+        + " ".join(f"{k}={v:.6f}" for k, v in metrics["card"].items())
+        + f"; worst gradient leaf {worst_name} at {worst:.4f} of its bar "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the tiny track_gen step on the card disagrees")
+    del cpu, card
+
+    jcpu, jcard = tiny_pair(torch, cfg=cfg, codec=dict(TINY_CODEC, dimension=4))
+    shape = (1, 520, mc.in_channels)
+    stream = torch.Generator().manual_seed(9)
+    x_t = torch.randn(shape, generator=stream)
+    noises = [torch.randn(shape, generator=stream) for _ in range(4)]
+    saved = (gdm.initial_noise, gdm.step_noise)
+    gdm.initial_noise = lambda shape, generator, device: x_t.to(device)
+    gdm.step_noise = lambda x, generator, index, uniform=False: noises[index].to(x.device)
+    try:
+        clip = synthetic_clip(np, 8, 13, 1600)
+        kw = dict(seed=3, steps=4, seconds=13, context_tracks={0: clip})
+        ref = jcpu.generate_tracks("two stems", **kw)
+        before = launch_counts()[0]
+        out = jcard.generate_tracks("two stems", **kw)
+        launched = launch_counts()[0] - before
+    finally:
+        gdm.initial_noise, gdm.step_noise = saved
+    err = float(np.abs(out - ref).max())
+    ok = (out.shape == ref.shape == (1, 2, 2, 13 * 1600) and launched > 0
+          and np.allclose(out, ref, rtol=2e-2, atol=2e-3))
+    log(f"[small-composer] generate_tracks card vs CPU: shape {out.shape}, max|diff|={err:.3e} "
+        f"(rtol 2e-2, atol 2e-3), K1 launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the tiny generate_tracks on the card disagrees")
+
+
+def full_train_config(**lora):
+    """longform_config() at 30 s windows, B = 3, one optimizer step per
+    call, the run's seed; LoRA fields from `lora`."""
+    from jen1_tpu_torch.config import longform_config
+
+    cfg = longform_config()
+    cfg.dataset_config.sample_duration = TRAIN_SECONDS
+    cfg.dataset_config.batch_size = TRAIN_BATCH
+    cfg.grad_accum_every = 1
+    cfg.seed = TRAIN_SEED
+    for k, v in lora.items():
+        setattr(cfg.lora_config, k, v)
+    return cfg
+
+
+def reset_launches():
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    fa.LAUNCHES_MMA = fa.LAUNCHES_DQ_MMA = fa.LAUNCHES_DKV_MMA = 0
+
+
+def mma_counts():
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    return fa.LAUNCHES_MMA, fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV_MMA
+
+
+def phase_lora(torch) -> tuple:
+    """LoRA fine-tuning at full width: longform_config(), rank 16, alpha 16,
+    the default targets, the base random from the seed, B = 3, 30 s. Three
+    steps, each launching K1/K2/K3 4/4/4, all on the tensor-core route;
+    every b gradient of the level-1 attention targets (where K1-K3 run)
+    nonzero and finite in the first step; the base bit-unchanged. Step
+    walls, peak device memory above the start, the adapter's size and the
+    checkpoint's bytes. Then Jen1(lora_path=run): its wall, the load and
+    merge wall, and on the card the merged weights of three target leaves
+    against W + scale * delta(a, b). Returns the K1/K2/K3 launches."""
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from jen1_tpu_torch.train import lora
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    cfg = full_train_config(rank=LORA_RANK, alpha=LORA_ALPHA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_adapter = lora.lora_param_count(trainer.adapter)
+    n_base = sum(p.numel() for p in trainer.model.parameters())
+    log(f"[lora] LoRATrainer built in {time.perf_counter() - t0:.2f} s: {len(trainer.adapter)} "
+        f"target kernels, adapter {n_adapter} parameters ({4 * n_adapter} bytes fp32) over a "
+        f"frozen base of {n_base}; scale {trainer.scale}")
+    frames = int(TRAIN_SECONDS * 150)
+    latents = np.random.default_rng(TRAIN_SEED).standard_normal(
+        (TRAIN_BATCH, frames, cfg.model_config.in_channels)).astype(np.float32)
+    batch = trainer.prepare_batch(latents, [{"prompt": p} for p in TRAIN_PROMPTS])
+    base = [p.detach().clone() for p in trainer.model.parameters()]
+    # the level-1 self-attention (1125 frames, through K1-K3): downsample1's
+    # transformer and its mirror, upsample7's
+    level1 = [i for i, n in enumerate(trainer._names())
+              if ("downsample1.transformer" in n or "upsample7.transformer" in n)
+              and ".attention." in n]
+    reset_launches()
+    walls, per_step = [], []
+    for step in range(LORA_STEPS):
+        before = launch_counts()
+        mma_before = mma_counts()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch, step_generator("cuda", TRAIN_SEED, step),
+                                      np.random.default_rng((TRAIN_SEED, step)))
+        loss = m["loss/train"].item()
+        walls.append(time.perf_counter() - t0)
+        counts = tuple(a - b for a, b in zip(launch_counts(), before))
+        mma = tuple(a - b for a, b in zip(mma_counts(), mma_before))
+        per_step.append(counts)
+        if step == 0:
+            b_grads = [trainer.params[i].grad for i in level1 if i % 2 == 1]
+            nonzero = sum(bool((g != 0).any()) and bool(torch.isfinite(g).all())
+                          for g in b_grads)
+            log(f"[lora] step 0: level-1 attention b gradients nonzero and finite {nonzero} of "
+                f"{len(b_grads)}")
+            if not b_grads or nonzero != len(b_grads):
+                raise SystemExit("chip_smoke: a level-1 LoRA target got no gradient")
+        log(f"[lora] step {step}: wall {walls[-1]:.4f} s, loss/train {loss:.6f}, grad_norm "
+            f"{float(m['grad_norm']):.6f}; K1/K2/K3 launches {counts}, tensor-core {mma}")
+        if counts != (TRAIN_LAUNCHES,) * 3 or mma != counts or not np.isfinite(loss):
+            raise SystemExit(f"chip_smoke: the LoRA step launched K1/K2/K3 {counts} ({mma} on "
+                             f"the tensor-core route), want {TRAIN_LAUNCHES} each")
+    peak = torch.cuda.max_memory_allocated() - start_mem
+    unchanged = all(torch.equal(a, p) for a, p in zip(base, trainer.model.parameters()))
+    del base
+    log(f"[lora] {LORA_STEPS} steps: walls {[round(w, 4) for w in walls]} s; peak device "
+        f"memory above the start {peak} bytes; base bit-unchanged {unchanged}")
+    if not unchanged:
+        raise SystemExit("chip_smoke: the LoRA steps changed the frozen base")
+
+    class TimedJen1(Jen1):
+        def _merge_lora(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scale = super()._merge_lora(*args)
+            torch.cuda.synchronize()
+            self.merge_wall = time.perf_counter() - t0
+            return scale
+
+    with scratch_dir() as d:
+        flat = trainer.state_dict(state)
+        t0 = time.perf_counter()
+        CheckpointManager(d).save(state.step, flat, loss=0.0)
+        save_wall = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        jen1 = TimedJen1(config=cfg, lora_path=d, device="cuda")
+        torch.cuda.synchronize()
+        build_wall = time.perf_counter() - t0
+    log(f"[lora] checkpoint: {len(flat)} tensors, {on_disk} bytes on disk, saved in "
+        f"{save_wall:.3f} s; Jen1(lora_path=...) built in {build_wall:.3f} s, of which the "
+        f"adapter's load and merge {jen1.merge_wall:.4f} s (scale {jen1.lora_scale})")
+    paths = list(trainer.adapter)
+    picks = [next(p for p in paths if "downsample1.transformer" in p and ".attention.to_q" in p),
+             next(p for p in paths if "to_kv" in p),
+             next(p for p in paths if "feed_forward" in p)]
+    errs = []
+    with torch.no_grad():
+        for path in picks:
+            module, leaf, w_base = lora.lora_targets(trainer.model, [path])[path]
+            want = w_base.float() + lora.lora_delta(module, leaf, w_base, trainer.adapter[path],
+                                                    jen1.lora_scale)
+            got = jen1.model.get_parameter(lora.flax_paths(jen1.model)[path])
+            errs.append(float((got.float() - want).abs().max()))
+    log(f"[lora] merged weights on the card against W + scale * a @ b: max|diff| {errs} for "
+        f"{picks}")
+    if max(errs) > 1e-6:
+        raise SystemExit("chip_smoke: Jen1(lora_path=...) merged other weights")
+    del trainer, state, jen1, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tuple(sum(s[i] for s in per_step) for i in range(3))
+
+
+def phase_wav_train(torch) -> tuple:
+    """Training from audio files at full width: four 30 s 48 kHz stereo WAV
+    files (three train windows, one validation), longform_config(), B = 3,
+    `train.run(dataset_dir=...)` for 5 steps with profile=True. Each step
+    encodes its batch on the card (whole-clip EnCodec, random weights) and
+    launches K1/K2/K3 4/4/4, all on the tensor-core route; the encode and
+    step walls from the run's metrics; the trace of steps 2-4 must exist
+    and name K1's, K2's and K3's kernels. Returns the K1/K2/K3 launches."""
+    import json
+    import warnings
+
+    import numpy as np
+
+    from jen1_tpu_torch.data.audio_io import write_wav
+    from jen1_tpu_torch.train import train as train_mod
+
+    cfg = full_train_config()
+    with scratch_dir() as d:
+        root = Path(d)
+        (root / "audios").mkdir()
+        (root / "metadata").mkdir()
+        t0 = time.perf_counter()
+        for i in range(WAV_FILES):
+            write_wav(str(root / "audios" / f"song{i}.wav"),
+                      synthetic_clip(np, 60 + i, TRAIN_SECONDS, 48_000), 48_000)
+            (root / "metadata" / f"song{i}.json").write_text(
+                json.dumps({"prompt": TRAIN_PROMPTS[i % len(TRAIN_PROMPTS)]}))
+        log(f"[wav-train] {WAV_FILES} x {TRAIN_SECONDS} s WAV files written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        dc = cfg.dataset_config
+        dc.dataset_dir = str(root)
+        dc.train_test_split = 0.75
+        cfg.eval_interval = 0
+        cfg.log_dir = str(root / "logs")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="jen1_tpu_torch: no codec weights")
+            trainer, state = train_mod.run(cfg, max_steps=WAV_STEPS, device="cuda",
+                                           profile=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, mma = launch_counts(), mma_counts()
+        records = [json.loads(line) for line in
+                   (root / "logs" / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in records if "loss/train" in r]
+        traces = sorted((root / "logs").glob("trace_*.json"))
+        text = traces[0].read_text() if traces else ""
+        named = {k: text.count(k) for k in ("flash_fwd_mma", "flash_bwd_dq_mma",
+                                             "flash_bwd_dkv_mma", "train_step", "encode")}
+        log(f"[wav-train] train.run over {WAV_STEPS} steps in {wall:.2f} s (codec and trainer "
+            f"built, probe encode, profiler export included): encode walls "
+            f"{[round(r['encode_time'], 4) for r in steps]} s, step walls "
+            f"{[round(r['step_time'], 4) for r in steps]} s, losses "
+            f"{[round(r['loss/train'], 4) for r in steps]}; K1/K2/K3 launches {counts}, "
+            f"tensor-core {mma}; trace {[t.name for t in traces]} "
+            f"({len(text)} bytes) names {named}")
+    want = (TRAIN_LAUNCHES * WAV_STEPS,) * 3
+    if len(steps) != WAV_STEPS or not all(np.isfinite(r["loss/train"]) for r in steps):
+        raise SystemExit("chip_smoke: the wav training run did not take its steps")
+    if counts != want or mma != counts:
+        raise SystemExit(f"chip_smoke: wav training launched K1/K2/K3 {counts} ({mma} on the "
+                         f"tensor-core route), want {want}")
+    if len(traces) != 1 or min(named.values()) == 0:
+        raise SystemExit("chip_smoke: the --profile trace is missing or names no port kernel")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_composer(torch) -> int:
+    """Composer at full width: Jen1(composer_config(4)) (in/out 512
+    channels, four 128-dim tracks), generate_tracks at 30 s, GDM DDIM,
+    track 0 given as a 30 s clip; steps cut to 20. A 2-step warm-up, then
+    the timed request: wall, peak device memory, K1 launches, the output's
+    shape and finiteness. Returns the K1 launches of the timed request."""
+    import warnings
+
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.config import composer_config
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="jen1_tpu_torch: ")
+        jen1 = Jen1(config=composer_config(COMPOSER_TRACKS), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[composer] Jen1(composer_config({COMPOSER_TRACKS})) built in "
+        f"{time.perf_counter() - t0:.2f} s; UNet params "
+        f"{sum(p.numel() for p in jen1.model.parameters())}")
+    clip = synthetic_clip(np, 70, COMPOSER_SECONDS, 48_000)
+    kw = dict(seed=12, seconds=COMPOSER_SECONDS, context_tracks={0: clip})
+    jen1.generate_tracks("a four-piece band", steps=2, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    before = launch_counts()[0]
+    t0 = time.perf_counter()
+    out = jen1.generate_tracks("a four-piece band", steps=COMPOSER_STEPS, **kw)
+    wall = time.perf_counter() - t0
+    launched = launch_counts()[0] - before
+    peak = torch.cuda.max_memory_allocated() - start_mem
+    want = (1, COMPOSER_TRACKS, 2, COMPOSER_SECONDS * 48_000)
+    ok = out.shape == want and bool(np.isfinite(out).all())
+    log(f"[composer] generate_tracks {COMPOSER_SECONDS} s, {COMPOSER_STEPS} DDIM steps, one "
+        f"context track: wall {wall:.4f} s, peak device memory above the start {peak} bytes, "
+        f"K1 launches {launched}; out {out.shape}, finite {bool(np.isfinite(out).all())}, "
+        f"rms {float(np.sqrt((out ** 2).mean())):.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: generate_tracks at full width failed")
+    del jen1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2514,6 +3112,9 @@ def main() -> int:
     phase_small_long(torch)
     phase_small_reuse(torch)
     phase_small_serve(torch)
+    phase_small_data(torch)
+    phase_small_lora(torch)
+    phase_small_composer(torch)
     k1_generation, jen1 = phase_main(torch)
     k1_generation += phase_tasks(torch, jen1)
     k1_generation += phase_long(torch, jen1)
@@ -2527,6 +3128,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k1_train, k2, k3 = phase_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for phase in (phase_lora, phase_wav_train):
+        k1, k2_more, k3_more = phase(torch)
+        k1_train, k2, k3 = k1_train + k1, k2 + k2_more, k3 + k3_more
+    k1_generation += phase_composer(torch)
     for row, launches in zip(rows, (k1_generation + k1_train, k2, k3, k4)):
         row["launches"] = launches
     print(json.dumps({"kernels": rows}), flush=True)

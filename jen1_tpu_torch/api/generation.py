@@ -33,9 +33,16 @@ caller fetches it (`.cpu()`), as `jen1_tpu_torch.serve` does in its
 completer threads. JAX's `rng_impl` and `compiler_options` are XLA knobs
 with no counterpart here.
 
-LoRA raises NotImplementedError naming its ROADMAP Queue 1 item;
-`generate_tracks` is not ported yet. The model runs on `device` ("cuda" by
-default; "cpu" only when asked).
+LoRA. `lora_path` names a checkpoint directory of a LoRA run
+(`train/lora.py::LoRATrainer`); its adapter (the EMA one with
+`use_ema_params`, where the run kept one) is merged into the UNet's weights
+once at load, before the bf16 cast of `weights_dtype`, with the scale
+`lora_scale` or `lora_config.alpha / rank`.
+
+Composer. `generate_tracks` generates the n_tracks channel groups of a
+multi-track config (`config.composer_config`), given any subset of tracks
+as waveforms. The model runs on `device` ("cuda" by default; "cpu" only
+when asked).
 """
 
 from __future__ import annotations
@@ -54,8 +61,12 @@ from jen1_tpu_torch.conditioning.conditioners import (
     assemble_conditioning,
     create_multi_conditioner,
 )
-from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager, has_checkpoints
-from jen1_tpu_torch.config import ROADMAP_TRAINING, Config, not_ported
+from jen1_tpu_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    has_checkpoints,
+    unreadable_checkpoint,
+)
+from jen1_tpu_torch.config import Config
 from jen1_tpu_torch.data.audio_io import convert_audio, write_wav
 from jen1_tpu_torch.data.flac_write import write_flac
 from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
@@ -129,19 +140,14 @@ class Jen1:
         *,
         device="cuda",
     ):
-        if lora_path is not None or lora_scale is not None:
-            raise not_ported("LoRA adapters (lora_path, lora_scale)", ROADMAP_TRAINING)
         if weights_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"weights_dtype must be None, 'float32' or 'bfloat16', "
                              f"got {weights_dtype!r}")
         is_reference = ckpt_path is not None and str(ckpt_path).endswith(REFERENCE_SUFFIXES)
         if ckpt_path is not None and not is_reference and not has_checkpoints(ckpt_path):
-            raise ValueError(
-                f"{ckpt_path!r} is not a checkpoint jen1_tpu_torch reads: give a checkpoint "
-                "directory of this package (<dir>/<step>/state.pt and meta.json, written by "
-                "jen1_tpu_torch.ckpt.checkpoint.CheckpointManager) or a reference JEN-1 "
-                "PyTorch file (.pth, .pt or .bin). JAX (Orbax) run directories are not "
-                "readable here.")
+            raise unreadable_checkpoint(ckpt_path)
+        if lora_path is not None and not has_checkpoints(lora_path):
+            raise unreadable_checkpoint(lora_path)
         self.device = resolve_device(device)
         self.sample_rate = sample_rate
         self.config = config or Config()
@@ -193,6 +199,9 @@ class Jen1:
         init_module(self.model, gen(0))
         if ckpt_path is not None:
             self._load_weights(ckpt_path, is_reference, use_ema_params)
+        self.lora_scale = None
+        if lora_path is not None:
+            self.lora_scale = self._merge_lora(lora_path, lora_scale, use_ema_params)
         if weights_dtype == "bfloat16":
             cast_weights_bf16(self.model)
         self.diffusion = create_variational_diffusion(
@@ -229,6 +238,20 @@ class Jen1:
                 f"{sorted(set(saved) - set(params))[:4]})")
         for name, p in params.items():
             p.copy_(saved[name])
+
+    def _merge_lora(self, lora_path: str, lora_scale: Optional[float],
+                    use_ema_params: bool) -> float:
+        """Merge the adapter of the latest step of `lora_path` into the UNet
+        (jen1_tpu/api/generation.py:268-290); returns the scale used."""
+        from jen1_tpu_torch.train.lora import adapter_from_state, adapter_rank, merge_lora
+
+        state, _ = CheckpointManager(lora_path).restore()
+        use_ema = use_ema_params and any(k.startswith("ema_params/") for k in state)
+        adapter = adapter_from_state(state, "ema_params/" if use_ema else "params/")
+        scale = (lora_scale if lora_scale is not None
+                 else self.config.lora_config.alpha / adapter_rank(adapter))
+        merge_lora(self.model, adapter, scale)
+        return scale
 
     def _get_gdm(self, steps: int):
         """The GDM with `steps` sampling steps, built once per count
@@ -539,6 +562,82 @@ class Jen1:
             ramp = np.linspace(0.0, 1.0, fade, dtype=np.float32)
             head = audio[..., -fade:] * (1.0 - ramp) + new_tail[..., :fade] * ramp
             audio = np.concatenate([audio[..., :-fade], head, new_tail[..., fade:]], axis=-1)
+
+    @torch.no_grad()
+    def generate_tracks(self, prompt, *, seed: int = -1, steps: int = 100,
+                        batch_size: int = 1, seconds: float = 30, use_gdm: bool = True,
+                        context_tracks: Optional[Dict[int, np.ndarray]] = None,
+                        context_tracks_sr: Optional[int] = None, decode: bool = True):
+        """Multi-track generation (jen1_tpu/api/generation.py:792-922) with a
+        Composer config (model_config.n_tracks > 1, the latent n_tracks
+        channel groups of the codec's dimension). `context_tracks` maps a
+        track index to a waveform (T, ch) or (B, T, ch) at
+        `context_tracks_sr` (default: the model's rate), given as context and
+        encoded chunked; the other tracks are generated, non-causally, with
+        the GDM (DDIM over `steps`) or with use_gdm=False the VDM. Returns
+        (B, n_tracks, channels, samples) float32, all tracks decoded as one
+        batched chunked decode, or with decode=False the latent
+        (B, n_tracks * track_dim, frames)."""
+        from jen1_tpu_torch.models.composer import generate_tracks, split_tracks
+
+        mc = self.config.model_config
+        n_tracks = mc.n_tracks
+        if n_tracks <= 1:
+            raise ValueError("generate_tracks needs a composer config (model_config.n_tracks "
+                             "> 1); see jen1_tpu_torch.config.composer_config")
+        track_dim = mc.in_channels // n_tracks
+        if track_dim != self.codec.config.dimension:
+            raise ValueError(f"track_dim {track_dim} != codec latent dim "
+                             f"{self.codec.config.dimension}")
+        context_tracks = {int(ti): wav for ti, wav in (context_tracks or {}).items()}
+        for ti in context_tracks:
+            if not 0 <= ti < n_tracks:
+                raise ValueError(f"track index {ti} out of range 0..{n_tracks - 1}")
+        prompts = [prompt] * batch_size if isinstance(prompt, str) else list(prompt)
+        if len(prompts) != batch_size:
+            raise ValueError(f"{len(prompts)} prompts != batch_size {batch_size}")
+        seed = seed if seed != -1 else int(np.random.randint(0, 2**31 - 1))
+        dev = self.device
+        channels = self.codec.config.channels
+        sample_length = int(seconds * self.sample_rate)
+
+        def encode_wave(wav) -> torch.Tensor:
+            wav = np.asarray(wav, np.float32)
+            if wav.ndim == 2:  # (T, ch) -> batch
+                wav = np.repeat(wav[None], batch_size, axis=0)
+            if context_tracks_sr and context_tracks_sr != self.sample_rate:
+                wav = np.stack([convert_audio(a, context_tracks_sr, self.sample_rate, channels)
+                                for a in wav])
+            if wav.shape[1] < sample_length:
+                wav = np.pad(wav, ((0, 0), (0, sample_length - wav.shape[1]), (0, 0)))
+            return self.codec.encode_latent_chunked(
+                torch.from_numpy(np.ascontiguousarray(wav[:, :sample_length])).to(dev))
+
+        latents_in = {ti: encode_wave(wav) for ti, wav in context_tracks.items()}
+        # the text conditioning; the track context's input_concat_cond
+        # (masked_input, then one mask channel per track) comes from
+        # models/composer.py::generate_tracks
+        text_cond = assemble_conditioning(
+            dict(self.conditioner([{"prompt": p} for p in prompts])),
+            cross_attn_cond_ids=self.cross_attn_cond_ids,
+            global_cond_ids=self.global_cond_ids,
+            input_concat_ids=(),
+        )
+        diffusion = self._get_gdm(steps) if use_gdm else self.diffusion
+        with fp32_precision():
+            latents = generate_tracks(
+                diffusion, self._model_fn, generator=torch.Generator(device=dev).manual_seed(seed),
+                n_tracks=n_tracks, track_dim=track_dim,
+                length=latent_length(sample_length, self.codec.config.hop_length),
+                text_cond=text_cond, context_tracks=latents_in, batch=batch_size, device=dev,
+                **({} if use_gdm else {"step": steps}))
+            if not decode:
+                return latents.cpu().numpy().transpose(0, 2, 1)  # (B, n * D, F)
+            # every track in one batched decode: (n_tracks * B, F, D)
+            audio = self.codec.decode_latent_chunked(
+                torch.cat(split_tracks(latents, n_tracks), dim=0))
+        audio = audio.cpu().numpy().reshape(n_tracks, batch_size, *audio.shape[1:])
+        return audio.transpose(1, 0, 3, 2)  # (B, n_tracks, ch, T)
 
 
 def save_audio(audio, file_path: str, sample_rate: int = 48_000) -> None:

@@ -72,6 +72,17 @@ def has_checkpoints(directory: str) -> bool:
         is_step_dir(os.path.join(directory, n)) for n in os.listdir(directory))
 
 
+def unreadable_checkpoint(path: str) -> ValueError:
+    """The error for a path that is neither a checkpoint directory of this
+    format nor a reference file: a JAX (Orbax) run directory, say."""
+    return ValueError(
+        f"{path!r} is not a checkpoint jen1_tpu_torch reads: give a checkpoint "
+        "directory of this package (<dir>/<step>/state.pt and meta.json, written by "
+        "jen1_tpu_torch.ckpt.checkpoint.CheckpointManager) or a reference JEN-1 "
+        "PyTorch file (.pth, .pt or .bin). JAX (Orbax) run directories are not "
+        "readable here.")
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3, keep_best: bool = True):
         """keep_best=True retains the k lowest-loss checkpoints, False the k

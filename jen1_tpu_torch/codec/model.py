@@ -276,8 +276,8 @@ class EncodecModel(nn.Module):
 
 
 def make_codec(weights_path: Optional[str] = None, config: Optional[EncodecConfig] = None,
-               *, device="cuda", generator: Optional[torch.Generator] = None
-               ) -> EncodecModel:
+               *, device="cuda", generator: Optional[torch.Generator] = None,
+               warn_context: str = "inference") -> EncodecModel:
     """The 48 kHz codec on `device`, with the torch state dict at
     `weights_path` loaded, or random from `generator` with a warning: a
     random codec gives noise latents and audio
@@ -291,7 +291,7 @@ def make_codec(weights_path: Optional[str] = None, config: Optional[EncodecConfi
                                                   config))
     else:
         warnings.warn(
-            "jen1_tpu_torch: no codec weights configured for inference: the EnCodec "
+            f"jen1_tpu_torch: no codec weights configured for {warn_context}: the EnCodec "
             "codec is RANDOM-initialized, so latents and audio will be noise. Set "
             "config.codec_weights_path to the pretrained EnCodec-48k state_dict.",
             UserWarning, stacklevel=2)

@@ -3,10 +3,11 @@
 A copy of every field of the JAX `Config` tree, with the same names and
 defaults, the JSON round trip of `jen1_tpu/config.py:318-381` (a JSON written
 by the JAX `Config.to_json()` loads; keys that neither package knows are
-ignored, as there) and the `longform_config()` and `tiny_test_config()`
-presets. Fields whose modules the port does not have yet keep their JAX
-defaults; any other value raises NotImplementedError naming the ROADMAP
-Queue 1 item that ports them (`UNPORTED`). `weights_path` and
+ignored, as there) and the `longform_config()`, `tiny_test_config()`,
+`composer_config()` and `tiny_composer_test_config()` presets. Fields
+whose modules the port does not have yet keep their JAX defaults; any
+other value raises NotImplementedError naming the ROADMAP Queue 1 item
+that ports them (`UNPORTED`). `weights_path` and
 `codec_weights_path` name local torch state dicts that the T5 conditioner
 and `Jen1`'s codec load. `compile_effort`, `use_fp16`,
 `is_finetuning` and `mesh_axis_names` are carried for the round trip and
@@ -195,17 +196,16 @@ class ParallelConfig:
 
 @dataclass
 class LoraConfig:
-    """LoRA finetuning (jen1_tpu/config.py:255-270); rank 0 disables it.
-    Not ported yet: the trainer refuses rank > 0, and the adapter settings
-    only their defaults."""
+    """LoRA fine-tuning (jen1_tpu/config.py:255-270; train/lora.py); rank 0
+    disables it. scale = alpha / rank; targets is a regex over the flax
+    parameter paths (None: lora.DEFAULT_TARGETS); base_ckpt holds the
+    frozen base (a checkpoint directory of this package or a reference
+    .pth)."""
 
     rank: int = 0
     alpha: float = 16.0
     targets: Optional[str] = None
     base_ckpt: Optional[str] = None
-
-    def __post_init__(self):
-        _refuse_unported(self, "lora_config")
 
 
 @dataclass
@@ -271,7 +271,6 @@ class Config:
 
 
 # ROADMAP Queue 1 items, by title, that port what the port refuses today
-ROADMAP_TRAINING = "ROADMAP Queue 1, 'Rest of training'"
 ROADMAP_MESH = "ROADMAP Queue 1, 'parallel/mesh.py on torch.distributed'"
 _MODEL_FEATURES = "ROADMAP Queue 1, 'Remaining model, conditioning and eval features'"
 
@@ -289,7 +288,6 @@ UNPORTED = {
         "stft_hop_length": _MODEL_FEATURES,
     },
     "ConditionerConfig": {"int_config": _MODEL_FEATURES, "number_config": _MODEL_FEATURES},
-    "LoraConfig": {name: ROADMAP_TRAINING for name in ("alpha", "targets", "base_ckpt")},
 }
 
 
@@ -334,6 +332,26 @@ def _resolve(tp):
     return tp
 
 
+def composer_config(n_tracks: int = 4) -> Config:
+    """JEN-1-Composer-style multi-track preset (jen1_tpu/config.py:384-408):
+    the default UNet with in/out = 128 * n_tracks channels, the channel-concat
+    conditioning carrying each track's masked latent plus one mask channel
+    per track, the track_gen task beside the three single-track ones, and
+    batch 4."""
+    cfg = Config()
+    cfg.model_config = dataclasses.replace(
+        cfg.model_config,
+        in_channels=128 * n_tracks,
+        out_channels=128 * n_tracks,
+        context_channels=(128 * n_tracks + n_tracks,),
+        n_tracks=n_tracks,
+        use_flash_attention=True,
+    )
+    cfg.tasks = ("text_guided", "music_inpaint", "music_cont", "track_gen")
+    cfg.dataset_config = dataclasses.replace(cfg.dataset_config, batch_size=4)
+    return cfg
+
+
 def longform_config() -> Config:
     """Long-form preset: attention at level 1 (downsample 4), where a 30 s
     clip attends over 4500 / 4 = 1125 frames, above `flash_min_seq_len`, so
@@ -374,4 +392,21 @@ def tiny_test_config() -> Config:
     cfg.conditioner_config.cond_dim = 16
     cfg.dataset_config.batch_size = 3
     cfg.grad_accum_every = 1
+    return cfg
+
+
+def tiny_composer_test_config(n_tracks: int = 2) -> Config:
+    """Miniature Composer config: 4 latent channels per track on the
+    tiny_test_config UNet (jen1_tpu/config.py:464-478)."""
+    track_dim = 4
+    cfg = tiny_test_config()
+    cfg.model_config = dataclasses.replace(
+        cfg.model_config,
+        in_channels=track_dim * n_tracks,
+        out_channels=track_dim * n_tracks,
+        context_channels=(track_dim * n_tracks + n_tracks,),
+        n_tracks=n_tracks,
+    )
+    cfg.tasks = ("text_guided", "music_inpaint", "music_cont", "track_gen")
+    cfg.dataset_config = dataclasses.replace(cfg.dataset_config, batch_size=4)
     return cfg

@@ -1,18 +1,28 @@
-"""Audio helpers (port of part of jen1_tpu/data/audio_io.py). numpy and
-the stdlib `wave` module only.
+"""Audio I/O (port of jen1_tpu/data/audio_io.py). numpy, the stdlib `wave`
+module and the native decoders (`data/native_io.py`).
 
-`read_wav` / `write_wav` (PCM WAV; `save_audio` writes through the latter)
-and `convert_audio`, which `Jen1.generate` applies to `init_audio`. Reading
-other formats (`load_audio` and the native decoders) waits for ROADMAP
-Queue 1, 'Rest of training' (`MusicDataset`).
+`load_audio` / `get_duration_sec` read WAV, FLAC, MP3, OGG and AAC/M4A
+through the native decoders, chosen by the file's extension; a WAV file the
+native reader rejects is read by the stdlib `read_wav`, as in the JAX
+package. Unlike JAX, nothing falls through to soundfile or torchaudio: any
+other extension raises ValueError, and a decoder that cannot be built or
+loaded raises. `write_wav` writes 16-bit PCM (`save_audio` writes through
+it) and `convert_audio` mixes channels and resamples.
 """
 
 from __future__ import annotations
 
+import os
 import wave
 from typing import Optional, Tuple
 
 import numpy as np
+
+from jen1_tpu_torch.data import native_io
+
+# file extension -> native decoder (jen1_tpu/data/audio_io.py:66-139)
+EXT_FORMAT = {".wav": "wav", ".flac": "flac", ".mp3": "mp3", ".ogg": "ogg", ".oga": "ogg",
+              ".aac": "aac", ".m4a": "aac", ".mp4": "aac"}
 
 
 def read_wav(path: str, start_frame: int = 0,
@@ -57,6 +67,42 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(ints.tobytes())
+
+
+def _format(path: str) -> str:
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext not in EXT_FORMAT:
+        raise ValueError(f"cannot read {path}: supported audio formats are "
+                         f"{', '.join(sorted(EXT_FORMAT))}")
+    return EXT_FORMAT[ext]
+
+
+def load_audio(path: str, start_frame: int = 0,
+               num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """(audio (frames, channels) float32, sample_rate) of `num_frames` frames
+    from `start_frame` (to the end of the file by default), zero-padded
+    past the end (jen1_tpu/data/audio_io.py:66-139)."""
+    fmt = _format(path)
+    if fmt != "wav":
+        return native_io.read(fmt, path, start_frame, num_frames)
+    try:
+        return native_io.read("wav", path, start_frame, num_frames)
+    except IOError:
+        return read_wav(path, start_frame, num_frames)
+
+
+def get_duration_sec(path: str) -> float:
+    """Duration from the file's header (MP3: one index scan; AAC: one
+    decode count) (jen1_tpu/data/audio_io.py:142-196)."""
+    fmt = _format(path)
+    try:
+        sr, _, frames = native_io.info(fmt, path)
+    except IOError:
+        if fmt != "wav":
+            raise
+        with wave.open(path, "rb") as w:
+            return w.getnframes() / w.getframerate()
+    return frames / sr
 
 
 def convert_audio(audio: np.ndarray, src_sr: int, dst_sr: int,

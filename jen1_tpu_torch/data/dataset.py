@@ -1,7 +1,11 @@
-"""Precomputed-latent dataset, split and batching loader (port of
-jen1_tpu/data/dataset.py:136-240). numpy only; `MusicDataset` and audio I/O
-wait for ROADMAP Queue 1, 'Rest of training'.
+"""Datasets, split and batching loader (port of jen1_tpu/data/dataset.py).
+numpy and the port's audio I/O.
 
+  MusicDataset    - audio files under <dataset_dir>/audios (WAV, FLAC, MP3,
+                    OGG, AAC/M4A) cut into sample_duration windows of the
+                    concatenated corpus, with the aug_shift jitter, and the
+                    sidecar <dataset_dir>/metadata/<name>.json; yields raw
+                    audio (the trainer or preprocess encodes it in batches).
   LatentDataset   - <dir>/<name>.npy latents (frames, C) + optional
                     <name>.json metadata ({"prompt": ""} when absent).
   train_test_split- index-level random split.
@@ -19,6 +23,114 @@ import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from jen1_tpu_torch.data.audio_io import convert_audio, get_duration_sec, load_audio
+
+AUDIO_EXTS = (".wav", ".mp3", ".flac", ".ogg", ".oga", ".aac", ".m4a", ".mp4")
+
+
+def audio_files(audio_dir: str) -> List[str]:
+    """The audio files directly under `audio_dir`, sorted by path."""
+    return sorted(os.path.join(audio_dir, f) for f in os.listdir(audio_dir)
+                  if f.lower().endswith(AUDIO_EXTS))
+
+
+class MusicDataset:
+    """Windows of an audio corpus (jen1_tpu/data/dataset.py:36-133).
+
+    The corpus is the files of <dataset_dir>/audios (or the list in
+    `audio_file_txt_path`) whose duration lies in [min_duration,
+    max_duration), laid end to end; item i is the sample_duration window
+    that starts at i * sample_duration, moved by a uniform jitter of up to
+    half a window when `aug_shift` (drawn from np.random.default_rng(seed),
+    as the JAX package draws it), and kept inside one file. `durations_path`
+    and `cumsum_path` (from `preprocess scan`) skip the duration probe.
+    Items are (audio (sample_duration * sr, channels) float32 at `sr`, the
+    file's sidecar metadata or {"prompt": ""})."""
+
+    def __init__(
+        self,
+        dataset_dir: str,
+        sr: int = 48_000,
+        channels: int = 2,
+        min_duration: float = 0.0,
+        max_duration: float = 300.0,
+        sample_duration: float = 10.0,
+        aug_shift: bool = True,
+        durations_path: Optional[str] = None,
+        cumsum_path: Optional[str] = None,
+        audio_file_txt_path: Optional[str] = None,
+        seed: int = 0,
+    ):
+        self.dataset_dir = dataset_dir
+        self.sr = sr
+        self.channels = channels
+        self.min_duration = min_duration
+        self.max_duration = max_duration
+        self.sample_duration = sample_duration
+        self.aug_shift = aug_shift
+        self.audio_files_dir = os.path.join(dataset_dir, "audios")
+        self.metadatas_dir = os.path.join(dataset_dir, "metadata")
+        self._rng = np.random.default_rng(seed)
+        if audio_file_txt_path is not None:
+            with open(audio_file_txt_path) as f:
+                files = [line.strip() for line in f if line.strip()]
+        else:
+            files = audio_files(self.audio_files_dir)
+        if durations_path is not None and cumsum_path is not None:
+            self.audio_files = files
+            self.durations = list(np.asarray(np.load(durations_path), np.float64))
+            self.cumsum = np.load(cumsum_path).astype(np.float64)
+        else:
+            durations = [get_duration_sec(f) for f in files]
+            keep = [i for i, d in enumerate(durations)
+                    if self.min_duration <= d < self.max_duration]
+            self.audio_files = [files[i] for i in keep]
+            self.durations = [durations[i] for i in keep]
+            self.cumsum = np.cumsum(np.asarray(self.durations, np.float64))
+
+    def __len__(self) -> int:
+        # one window per sample_duration of corpus time
+        return int(self.cumsum[-1] // self.sample_duration)
+
+    def get_index_offset(self, item: int) -> Tuple[int, float]:
+        """(file index, offset in seconds) of window `item`, with the
+        +-half-window jitter (jen1_tpu/data/dataset.py:87-103)."""
+        half = self.sample_duration / 2
+        shift = float(self._rng.uniform(-half, half)) if self.aug_shift else 0.0
+        offset = item * self.sample_duration + shift
+        midpoint = min(max(offset + half, 0.0), float(self.cumsum[-1]) - 1e-6)
+        index = int(np.searchsorted(self.cumsum, midpoint))
+        start = float(self.cumsum[index - 1]) if index > 0 else 0.0
+        end = float(self.cumsum[index])
+        if offset > end - self.sample_duration:
+            offset = max(start, offset - half)
+        elif offset < start:
+            offset = min(end - self.sample_duration, offset + half)
+        offset = min(max(offset, start), max(end - self.sample_duration, start))
+        return index, offset - start
+
+    def get_song_chunk(self, index: int, offset_sec: float) -> Tuple[np.ndarray, int]:
+        audio, sr = load_audio(self.audio_files[index])
+        start = int(offset_sec * sr)
+        return audio[start:start + int(self.sample_duration * sr)], sr
+
+    def get_metadata(self, index: int) -> Dict[str, Any]:
+        song = os.path.splitext(os.path.basename(self.audio_files[index]))[0]
+        path = os.path.join(self.metadatas_dir, f"{song}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+        return {"prompt": ""}
+
+    def __getitem__(self, item: int) -> Tuple[np.ndarray, Dict[str, Any]]:
+        index, offset = self.get_index_offset(item)
+        chunk, sr = self.get_song_chunk(index, offset)  # the mapped file index
+        chunk = convert_audio(chunk, sr, self.sr, self.channels)
+        want = int(self.sample_duration * self.sr)
+        if chunk.shape[0] < want:  # a tail window is padded
+            chunk = np.pad(chunk, ((0, want - chunk.shape[0]), (0, 0)))
+        return chunk[:want], self.get_metadata(index)
 
 
 class LatentDataset:

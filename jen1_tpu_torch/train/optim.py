@@ -19,7 +19,15 @@ written as plain torch over a list of fp32 parameters, updated in place:
     resets it by multiplying by zero, as optax does (a NaN in the mean
     therefore stays).
 The optimizer's step counts are host integers; the finite check reads one
-value from the device per applied step. `flatten_optimizer` is not ported.
+value from the device per applied step.
+
+`flatten_optimizer` (optax.flatten around the whole chain, jen1_tpu/train/
+optim.py:52-62): the moments and the accumulator are one fp32 vector each,
+and every call copies the gradients and parameters into one vector, runs
+the chain over it and copies the parameters back: the same math up to the
+summation order of the global norm. The state then holds one-element lists,
+so it is not interchangeable with the per-parameter layout (the trainer's
+`load_state_dict` refuses a checkpoint of the other layout).
 """
 
 from __future__ import annotations
@@ -77,16 +85,16 @@ class AdamWChain:
 
     def __init__(self, opt_config, grad_accum_every: int = 1,
                  max_consecutive_errors: int = 100):
-        if opt_config.flatten_optimizer:
-            raise NotImplementedError(
-                "flatten_optimizer is not ported yet (ROADMAP Queue 1, 'Rest of training')")
         self.oc = opt_config
+        self.flatten = bool(opt_config.flatten_optimizer)
         self.k = int(grad_accum_every)
         self.skip_nonfinite = opt_config.skip_nonfinite_updates
         self.max_consecutive_errors = max_consecutive_errors
         self.lr = make_lr_schedule(opt_config)
 
     def init(self, params: List[torch.Tensor]) -> ChainState:
+        if self.flatten:
+            params = [flat_fp32(params)]
         zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         return ChainState(
             mu=zeros, nu=[torch.zeros_like(z) for z in zeros],
@@ -97,7 +105,16 @@ class AdamWChain:
     def update(self, grads: List[torch.Tensor], state: ChainState,
                params: List[torch.Tensor]) -> ChainState:
         """Apply one call's update to `params` in place; returns `state`."""
-        grads = [g.float() for g in grads]
+        if self.flatten:
+            flat = [flat_fp32(params)]
+            self._update([flat_fp32(grads)], state, flat)
+            sizes = [p.numel() for p in params]
+            torch._foreach_copy_(params, [c.view_as(p) for c, p in
+                                          zip(flat[0].split(sizes), params)])
+            return state
+        return self._update([g.float() for g in grads], state, params)
+
+    def _update(self, grads, state: ChainState, params) -> ChainState:
         if self.k == 1:
             self._apply_if_finite(grads, state, params)
             return state
@@ -143,6 +160,11 @@ class AdamWChain:
         torch._foreach_add_(upd, params, alpha=oc.weight_decay)
         torch._foreach_add_(params, upd, alpha=-self.lr(state.count))
         state.count = count
+
+
+def flat_fp32(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The tensors' elements, in order, as one fp32 vector (a copy)."""
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
 
 def make_optimizer(opt_config, grad_accum_every: int = 1) -> AdamWChain:

@@ -1,4 +1,4 @@
-"""Multi-task latent masks (port of jen1_tpu/train/tasks.py:32-87).
+"""Multi-task latent masks (port of jen1_tpu/train/tasks.py:29-87).
 
   text_guided   -> all-zero mask (masked_input fully hidden); its causal flag
                    is a coin the trainer draws per step on the host
@@ -6,11 +6,15 @@
                    start is hidden; bidirectional
   music_cont    -> the last region of length in [0.2L, 0.8L] is hidden; causal
 
-One mask is shared across a task's sub-batch. `task_mask` builds a mask
-from its drawn length and start, which may be Python ints or 0-d tensors on
-the mask's device (so drawing them needs no host sync); `random_task_mask`
-draws them from a torch.Generator and builds. `track_gen` (Composer) is not
-ported yet.
+  track_gen     -> (Composer, n_tracks > 1) a random subset of tracks is
+                   given as context, the others are hidden; bidirectional
+
+One mask is shared across a task's sub-batch; with n_tracks > 1 the
+temporal tasks tile their mask over every track. `task_mask` builds a mask
+from its draws - the hidden region's length and start, which may be Python
+ints or 0-d tensors on the mask's device (so drawing them needs no host
+sync), or track_gen's keep-bits (n_tracks,) - and `random_task_mask` draws
+them from a torch.Generator and builds.
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from jen1_tpu_torch.models.composer import draw_track_bits, track_bits_mask
+
 TASKS = ("text_guided", "music_inpaint", "music_cont")
+COMPOSER_TASKS = TASKS + ("track_gen",)
 
 Scalar = Union[int, torch.Tensor]
 
@@ -36,8 +43,8 @@ def draw_mask_region(
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(mask_len, start) as 0-d int64 tensors on `device`: mask_len uniform
     on [lo, hi], start uniform on [0, length - mask_len]. None where the
-    task draws none (text_guided; music_cont has no start)."""
-    if task == "text_guided":
+    task draws none (text_guided and track_gen; music_cont has no start)."""
+    if task in ("text_guided", "track_gen"):
         return None, None
     _check_task(task)
     lo, hi = mask_length_bounds(length)
@@ -53,9 +60,13 @@ def draw_mask_region(
 def task_mask(
     task: str, batch: int, length: int, mask_len: Optional[Scalar] = None,
     start: Optional[Scalar] = None, n_tracks: int = 1, device=None,
+    track_bits: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Mask (batch, length, n_tracks) float32; 1 = keep, 0 = hidden."""
-    _check_task(task)
+    """Mask (batch, length, n_tracks) float32; 1 = keep, 0 = hidden.
+    track_gen takes its drawn keep-bits (n_tracks,)."""
+    _check_task(task, n_tracks)
+    if task == "track_gen":
+        return track_bits_mask(track_bits, batch, length)
     idx = torch.arange(length, device=device)[:, None]  # (L, 1)
     if task == "text_guided":
         mask = torch.zeros((length, 1), device=device)
@@ -71,7 +82,12 @@ def random_task_mask(
     generator: Optional[torch.Generator], batch: int, length: int, task: str,
     n_tracks: int = 1, device=None,
 ) -> torch.Tensor:
-    """Draw the task's region from `generator` and build its mask."""
+    """Draw the task's region (or track_gen's keep-bits) from `generator`
+    and build its mask."""
+    if task == "track_gen":
+        _check_task(task, n_tracks)
+        return task_mask(task, batch, length, n_tracks=n_tracks, device=device,
+                         track_bits=draw_track_bits(generator, n_tracks, device))
     mask_len, start = draw_mask_region(task, length, generator, device)
     return task_mask(task, batch, length, mask_len, start, n_tracks, device)
 
@@ -94,11 +110,8 @@ def apply_mask(latents: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor,
     return latents * mask.to(latents.dtype), mask
 
 
-def _check_task(task: str) -> None:
-    if task == "track_gen":
-        raise NotImplementedError(
-            "the track_gen task needs Composer, which is not ported yet "
-            "(ROADMAP Queue 1, 'Rest of training')"
-        )
-    if task not in TASKS:
+def _check_task(task: str, n_tracks: int = 1) -> None:
+    if task not in COMPOSER_TASKS:
         raise ValueError(f"unknown task: {task}")
+    if task == "track_gen" and n_tracks <= 1:
+        raise ValueError("track_gen task needs model_config.n_tracks > 1")

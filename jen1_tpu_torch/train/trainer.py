@@ -24,12 +24,17 @@ q_sample promotes the bf16 latents) and the flax modules cast to their
 compute dtype inside; in fp32 the two agree (tests/test_torch_train.py).
 
 Checkpoints. `state_dict(state)` flattens the parameters, the optimizer
-state (fused AdamW, or the chain with its MultiSteps accumulator), the step
-and the EMA into one {name: tensor} dict, the format of
-`ckpt/checkpoint.py`; `load_state_dict` restores it onto the trainer's
-device.
+state (fused AdamW, or the chain with its MultiSteps accumulator, one
+vector per field under `flatten_optimizer`), the step and the EMA into one
+{name: tensor} dict, the format of `ckpt/checkpoint.py`; `load_state_dict`
+restores it onto the trainer's device.
 
-Not ported yet: the mesh (dp/tp/fsdp/sp), LoRA.
+Composer. With n_tracks > 1 the masks carry one channel per track and the
+`track_gen` task hides a drawn subset of tracks (`StepDraws.track_bits`).
+
+LoRA. `train/lora.py::LoRATrainer` trains an adapter over a frozen base
+through the same steps: its `params` are the adapter's leaves. Not ported
+yet: the mesh (dp/tp/fsdp/sp).
 """
 
 from __future__ import annotations
@@ -41,12 +46,16 @@ import numpy as np
 import torch
 
 from jen1_tpu_torch.conditioning.conditioners import assemble_conditioning
-from jen1_tpu_torch.models.composer import composer_conditioning
+from jen1_tpu_torch.models.composer import composer_conditioning, draw_track_bits
 from jen1_tpu_torch.ops.conv import fp32_precision
 from jen1_tpu_torch.ops.embeddings import rand_bool
 from jen1_tpu_torch.train.fused_optim import fused_adamw_apply, fused_adamw_init
 from jen1_tpu_torch.train.optim import global_norm, make_lr_schedule, make_optimizer
 from jen1_tpu_torch.train.tasks import draw_mask_region, task_is_causal, task_mask
+from jen1_tpu_torch.utils.profiling import annotate
+
+# the state_dict name of a flat (flatten_optimizer) optimizer-state vector
+FLAT_NAME = "__flat__"
 
 
 @dataclasses.dataclass
@@ -59,10 +68,10 @@ class TrainState:
 @dataclasses.dataclass
 class StepDraws:
     """The device random draws of one step. Per task: the hidden region's
-    length and start (absent where the task draws none) and, for GDM, the
-    timesteps (sub,). Per causal group (the concatenated same-flag tasks, in
-    task order): fp32 noise (B_g, L, C), VDM times (B_g,) and the CFG
-    dropout bits (B_g, 1, 1)."""
+    length and start (absent where the task draws none), track_gen's
+    keep-bits (n_tracks,) and, for GDM, the timesteps (sub,). Per causal
+    group (the concatenated same-flag tasks, in task order): fp32 noise
+    (B_g, L, C), VDM times (B_g,) and the CFG dropout bits (B_g, 1, 1)."""
 
     mask_len: Dict[str, Any]
     mask_start: Dict[str, Any]
@@ -70,6 +79,7 @@ class StepDraws:
     noise: Dict[bool, torch.Tensor]
     times: Dict[bool, torch.Tensor]
     cfg_bits: Dict[bool, torch.Tensor]
+    track_bits: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def step_generator(device, seed: int, index: int) -> torch.Generator:
@@ -145,7 +155,8 @@ class UnifiedMultiTaskTrainer:
         for f in dataclasses.fields(state.opt_state):
             value = getattr(state.opt_state, f.name)
             if isinstance(value, list):
-                out.update({f"opt/{f.name}/{n}": t for n, t in zip(names, value)})
+                out.update({f"opt/{f.name}/{n}": t
+                            for n, t in zip(self._opt_names(names), value)})
             elif value is not None:
                 out[f"opt/{f.name}"] = torch.tensor(int(value), dtype=torch.int64)
         out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
@@ -160,13 +171,19 @@ class UnifiedMultiTaskTrainer:
         state = self.init_state()
         want = set(self.state_dict(state))
         if set(flat) != want:
+            flat_saved = any(k.endswith(f"/{FLAT_NAME}") for k in flat)
+            if flat_saved != self._flat_optimizer:
+                raise ValueError(
+                    "checkpoint's optimizer state was written with flatten_optimizer="
+                    f"{flat_saved}, this trainer has flatten_optimizer={self._flat_optimizer}: "
+                    "the two layouts are not interchangeable")
             missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
             raise ValueError(f"checkpoint does not fit this trainer: missing {missing[:4]}, "
                              f"unexpected {extra[:4]}")
         names = self._names()
 
-        def copy_list(prefix: str, dst: List[torch.Tensor]) -> None:
-            for n, t in zip(names, dst):
+        def copy_list(prefix: str, dst: List[torch.Tensor], keys=names) -> None:
+            for n, t in zip(keys, dst):
                 t.copy_(flat[f"{prefix}/{n}"])
 
         copy_list("params", [p.data for p in self.params])
@@ -175,11 +192,20 @@ class UnifiedMultiTaskTrainer:
         for f in dataclasses.fields(state.opt_state):
             value = getattr(state.opt_state, f.name)
             if isinstance(value, list):
-                copy_list(f"opt/{f.name}", value)
+                copy_list(f"opt/{f.name}", value, self._opt_names(names))
             elif value is not None:
                 setattr(state.opt_state, f.name, int(flat[f"opt/{f.name}"]))
         state.step = int(flat["step"])
         return state
+
+    @property
+    def _flat_optimizer(self) -> bool:
+        return self.optimizer is not None and self.optimizer.flatten
+
+    def _opt_names(self, names: List[str]) -> List[str]:
+        """Names of the optimizer state's per-parameter lists: one flat
+        vector under flatten_optimizer."""
+        return [FLAT_NAME] if self._flat_optimizer else names
 
     # ----------------------------------------------------------- draws
 
@@ -199,6 +225,8 @@ class UnifiedMultiTaskTrainer:
         dev = self.device
         draws = StepDraws({}, {}, {}, {}, {}, {})
         for task in self.tasks:
+            if task == "track_gen":
+                draws.track_bits[task] = draw_track_bits(generator, self.n_tracks, dev)
             mask_len, start = draw_mask_region(task, length, generator, dev)
             if mask_len is not None:
                 draws.mask_len[task] = mask_len
@@ -247,7 +275,8 @@ class UnifiedMultiTaskTrainer:
             s = slice(i * sub, (i + 1) * sub)
             sub_lat = latents[s]
             mask = task_mask(task, sub, length, draws.mask_len.get(task),
-                             draws.mask_start.get(task), self.n_tracks, latents.device)
+                             draws.mask_start.get(task), self.n_tracks, latents.device,
+                             track_bits=draws.track_bits.get(task))
             masked_input, mask = composer_conditioning(sub_lat, mask, self.track_dim)
             cond = {
                 "prompt": (text_emb[s], text_mask[s]),
@@ -321,11 +350,13 @@ class UnifiedMultiTaskTrainer:
         flags = self._causal_flags(rng_host)
         draws = self.draw_randoms(generator, flags, batch["latents"].shape)
         self.model.train()
-        self.model.zero_grad(set_to_none=True)
-        with fp32_precision():
+        for p in self.params:
+            p.grad = None
+        with fp32_precision(), annotate("forward_backward"):
             total, per_task = self._multi_task_loss(batch, draws, flags)
             total.backward()
-        gnorm = self._apply_optimizer(state)
+        with annotate("optimizer"):
+            gnorm = self._apply_optimizer(state)
         if state.ema_params is not None:
             d = self.ema_decay
             with torch.no_grad():

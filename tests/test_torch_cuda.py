@@ -494,3 +494,118 @@ def test_service_round_trip_on_cuda(cuda_device):
     assert isinstance(audio, np.ndarray) and audio.shape == (2, 3200)
     np.testing.assert_array_equal(audio, direct[0])
     assert svc.stats["padded_lanes"] == 2 and svc.stats["errors"] == 0
+
+
+def test_lora_step_on_cuda_matches_cpu(cuda_device):
+    """A tiny LoRATrainer step (rank 4, default targets; L = 520, so the
+    level-1 attention of 130 frames runs K1 and, in the backward, K2/K3
+    with the adapter's gradient flowing through the merged to_q / to_kv /
+    to_out weights) on the card against the CPU with the same base, adapter
+    and draws: losses and every adapter gradient leaf at the train bars;
+    the card's base unchanged and without gradients."""
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.config import tiny_test_config
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import StepDraws, step_generator
+
+    cfg = tiny_test_config()
+    cfg.model_config = dataclasses.replace(cfg.model_config, use_flash_attention=True,
+                                           flash_min_seq_len=128)
+    t5c = cfg.conditioner_config.t5_config
+    t5c.t5_model_name, t5c.max_length = "tiny-test", cfg.model_config.context_embedding_max_length
+    cfg.lora_config.rank, cfg.lora_config.alpha = 4, 8.0
+    mc = cfg.model_config
+    g = np.random.default_rng(1)
+    m = mc.context_embedding_max_length
+    host = {"latents": g.standard_normal((3, 520, mc.in_channels)).astype(np.float32),
+            "text_emb": g.standard_normal((3, m, mc.context_embedding_features)
+                                          ).astype(np.float32),
+            "text_mask": np.ones((3, m), bool)}
+    cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for path, ab in cpu.adapter.items():
+            ab["b"].copy_(0.05 * torch.randn(ab["b"].shape, generator=gen))
+            for key in ("a", "b"):
+                card.adapter[path][key].copy_(ab[key])
+    base = [p.detach().clone() for p in card.model.parameters()]
+    draws = cpu.draw_randoms(step_generator("cpu", 0, 1), cpu._causal_flags(Coin(1)),
+                             host["latents"].shape)
+    moved = StepDraws(*[{k: v.to("cuda") if torch.is_tensor(v) else v
+                         for k, v in getattr(draws, f.name).items()}
+                        for f in dataclasses.fields(StepDraws)])
+    cpu.draw_randoms = lambda *a: draws
+    card.draw_randoms = lambda *a: moved
+    metrics = {}
+    before = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    for name, tr in (("cpu", cpu), ("card", card)):
+        batch = {k: torch.as_tensor(v, device=tr.device) for k, v in host.items()}
+        _, mt = tr.train_step(tr.init_state(), batch, None, Coin(1))
+        metrics[name] = {k: float(v) for k, v in mt.items()}
+    launched = (fa.LAUNCHES - before[0], fa.LAUNCHES_DQ - before[1], fa.LAUNCHES_DKV - before[2])
+    assert min(launched) > 0, launched
+    for k, ref in metrics["cpu"].items():
+        if k.startswith("loss"):
+            assert abs(metrics["card"][k] - ref) <= 2e-3 * abs(ref), k
+    refs = [p.grad for p in cpu.params]
+    floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
+    for name, p, ref in zip(card._names(), card.params, refs):
+        bar = GRAD_LEAF_BAR * max(ref.abs().max().item(), floor)
+        assert (p.grad.cpu() - ref).abs().max().item() <= bar, name
+    level1 = [p.grad for n, p in zip(card._names(), card.params)
+              if "downsample1.transformer" in n and ".attention." in n]
+    assert level1 and all(bool((g != 0).any()) for g in level1)
+    assert all(torch.equal(a, p) and p.grad is None
+               for a, p in zip(base, card.model.parameters()))
+
+
+def test_generate_tracks_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """A tiny Composer Jen1 (tiny_composer_test_config(2), 4-dim tracks,
+    flash_min_seq_len 128) generates 13 s with track 0 given as a clip, GDM
+    DDIM over 4 steps, on the card and on the CPU with the same weights,
+    x_T and step noise: rtol 2e-2 / atol 2e-3, and K1 runs on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
+    from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
+    from jen1_tpu_torch.config import tiny_composer_test_config
+    from jen1_tpu_torch.diffusion import gdm
+
+    cfg = tiny_composer_test_config(2)
+    cfg.model_config = dataclasses.replace(cfg.model_config, use_flash_attention=True,
+                                           flash_min_seq_len=128)
+    jen1 = {}
+    for device in ("cpu", "cuda"):
+        t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
+                           device=device)
+        jen1[device] = Jen1(sample_rate=1600, config=cfg, device=device,
+                            codec=EncodecModel(EncodecConfig(**dict(TINY_CODEC, dimension=4)),
+                                               device=device).eval(),
+                            conditioner=MultiConditioner({"prompt": t5}))
+    for part in ("model", "codec"):
+        getattr(jen1["cuda"], part).load_state_dict(getattr(jen1["cpu"], part).state_dict())
+    jen1["cuda"].conditioner.conditioners["prompt"].load_state_dict(
+        jen1["cpu"].conditioner.conditioners["prompt"].state_dict())
+    stream = torch.Generator().manual_seed(4)
+    x_t = torch.randn((1, 520, 8), generator=stream)
+    noises = [torch.randn((1, 520, 8), generator=stream) for _ in range(4)]
+    monkeypatch.setattr(gdm, "initial_noise", lambda shape, generator, device: x_t.to(device))
+    monkeypatch.setattr(gdm, "step_noise", lambda x, generator, index, uniform=False:
+                        noises[index].to(x.device))
+    g = np.random.default_rng(6)
+    clip = (0.3 * np.sin(np.arange(13 * 1600)[:, None] * np.array([0.5, 0.9]))
+            + 0.05 * g.standard_normal((13 * 1600, 2))).astype(np.float32)
+    kw = dict(seed=3, steps=4, seconds=13, context_tracks={0: clip})
+    ref = jen1["cpu"].generate_tracks("two stems", **kw)
+    before = fa.LAUNCHES
+    out = jen1["cuda"].generate_tracks("two stems", **kw)
+    assert fa.LAUNCHES > before
+    assert out.shape == ref.shape == (1, 2, 2, 13 * 1600) and np.isfinite(out).all()
+    assert np.allclose(out, ref, rtol=2e-2, atol=2e-3), float(np.abs(out - ref).max())

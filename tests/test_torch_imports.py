@@ -59,6 +59,14 @@ SERVING_MODULES = [
 ]
 
 
+# the rest of training: audio I/O, preprocessing, LoRA, profiling, Composer
+TRAINING_REST_MODULES = [
+    "jen1_tpu_torch/data/native_io.py", "jen1_tpu_torch/data/preprocess.py",
+    "jen1_tpu_torch/train/lora.py", "jen1_tpu_torch/utils/profiling.py",
+    "jen1_tpu_torch/models/normalizer.py", "jen1_tpu_torch/models/composer.py",
+]
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     found = {str(p.relative_to(ROOT)) for p in PORT_FILES}
@@ -66,6 +74,7 @@ def test_port_files_found():
     assert set(INT8_GDM_MODULES) <= found
     assert set(LONGFORM_CKPT_MODULES) <= found
     assert set(SERVING_MODULES) <= found
+    assert set(TRAINING_REST_MODULES) <= found
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -84,10 +93,11 @@ def test_jen1_default_device_raises_without_card():
         Jen1()
 
 
-@pytest.mark.parametrize("entry", ["serve", "batch_generate", "verify_weights"])
+@pytest.mark.parametrize("entry", ["serve", "batch_generate", "verify_weights", "preprocess"])
 def test_new_entry_points_default_to_the_card(entry, tmp_path):
-    """The serving CLIs build their Jen1 on the card unless told otherwise:
-    without one they raise before doing any work."""
+    """The serving CLIs build their Jen1, and preprocess its codec, on the
+    card unless told otherwise: without one they raise before doing any
+    work."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     prompts = tmp_path / "prompts.txt"
@@ -97,6 +107,10 @@ def test_new_entry_points_default_to_the_card(entry, tmp_path):
             from jen1_tpu_torch.serve import main
 
             main(["--port", "0"])
+        elif entry == "preprocess":
+            from jen1_tpu_torch.data.preprocess import main
+
+            main(["encode", "--dataset-dir", str(tmp_path)])
         elif entry == "batch_generate":
             from jen1_tpu_torch.api.batch_generate import main
 

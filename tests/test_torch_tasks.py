@@ -168,9 +168,3 @@ def test_generate_refusals(pair, kw, exc):
     _, pj = pair
     with pytest.raises(exc):
         pj.generate(PROMPT, seed=1, steps=1, seconds=1, **kw)
-
-
-@pytest.mark.parametrize("kw", [dict(lora_path="run/lora"), dict(lora_scale=0.5)])
-def test_unported_constructor_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, '"):
-        Jen1(device="cpu", **kw)
