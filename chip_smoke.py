@@ -16,7 +16,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    its route (bf16: tensor cores; fp32: scalar); what a
                    dropped ragged tile, K1 with a single bf16 P or K2 with a
                    single bf16 dS would shift; K1 timed at the generation
-                   shape, at N = 4500 and at the serving batch (B*H 64), K2/K3
+                   shape, at N = 4500, at the serving batch (B*H 64) and at
+                   the STFT UNet's level 1 (N = 1407; checked there too), K2/K3
                    at the training shape, both causal values, in device time
                    (torch.profiler; CUDA events beside it), beside their plain
                    versions, their bounds (bytes / operations, and the ex2
@@ -146,9 +147,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
  25. composer    - Jen1(composer_config(4)).generate_tracks at 30 s, GDM DDIM
                    cut to 20 steps, one context track: wall, peak memory, K1
                    launches.
+ 26. small-features - tiny widths, card against CPU: Snake generate() (VDM,
+                   DDIM) and a Snake train step (alpha gradients included),
+                   the .pth export -> import round trip, the STFT's DC phase
+                   sign and STFT UNet forwards with and without
+                   use_stft_context, the three-type MultiConditioner and a
+                   UNet with global features, log-mel FAD, SNR, spectral
+                   convergence and a random VGGish's embeddings.
+ 27. snake       - Jen1(longform_config(), use_snake=True): two 100-step 30 s
+                   VDM requests (walls, peak memory, K1 200 each, all
+                   tensor-core), device kernels of a profiled 10-step request
+                   against phase main's, export to a reference .pth read back
+                   by Jen1(ckpt_path=...) bit for bit (bf16 weights keep alpha
+                   fp32), two train steps at B = 3 (K1/K2/K3 4/4/4, alpha
+                   gradients finite and nonzero).
+ 28. stft        - UNetCFG1d at longform widths with use_stft and
+                   use_stft_context on 30 s of 48 kHz stereo, B = 1 with batch
+                   CFG: forward walls, peak memory, output shape, K1 at the
+                   level-1 length 1407 (4 launches in two forwards).
+ 29. eval        - phase main's and phase snake's requests as WAV; run_eval on
+                   the card and on the CPU (log-mel FAD, SNR, spectral
+                   convergence) and a random VGGish FAD on both: walls,
+                   card against CPU.
 The phases run in the order small-*, main .. serve, flagship, train, lora,
-wav-train, composer (small-data, small-lora and small-composer after
-small-serve). The line before the last is the `{"kernels": [...]}` record;
+wav-train, composer, snake, stft, eval (small-data, small-lora,
+small-composer and small-features after small-serve). The line before the
+last is the `{"kernels": [...]}` record;
 the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -294,6 +318,18 @@ WAV_STEPS = 5
 COMPOSER_TRACKS = 4
 COMPOSER_STEPS = 20  # cut from 100 to keep the run's time
 COMPOSER_SECONDS = 30
+# Snake at full width: longform_config() with use_snake (and tied transformer
+# projections, which the reference .pth layout needs), two 100-step 30 s VDM
+# requests (SLICE_PROMPTS, as phase main), two train steps at B = 3
+SNAKE_TRAIN_STEPS = 2
+# the STFT-domain UNet: 30 s of 48 kHz stereo is 5625 STFT frames (hop 256),
+# 1407 at level 1 after the factor-4 downsample, where K1 runs
+STFT_SECONDS = 30
+STFT_N = 1407
+# small-features: Snake alphas drawn from U(0.5, 1.5), as a trained Snake keeps them
+SMALL_ALPHA_SEED = 3
+# eval: the random VGGish weights' seed
+VGGISH_SEED = 0
 
 
 _START = time.perf_counter()
@@ -513,7 +549,9 @@ def phase_kernels(torch, clock_hz: float) -> list:
     # the serving batch: max_batch 4, CFG-doubled, 8 heads
     cases += [(SERVE_BH, 1125, 16, dt, c) for dt in ("bfloat16", "float32")
               for c in (False, True)]
-    k1_err = serve_err = 0.0
+    # the STFT-domain UNet's level 1 (phase stft)
+    cases += [(16, STFT_N, 16, dt, c) for dt in ("bfloat16", "float32") for c in (False, True)]
+    k1_err = serve_err = stft_err = 0.0
     for bh, n, d, dt, causal in cases:
         q, k, v = qkv(bh, n, d, dtypes[dt])
         before = fa.LAUNCHES_MMA
@@ -539,6 +577,8 @@ def phase_kernels(torch, clock_hz: float) -> list:
             k1_err = max(err_o, err_lse)
         if (bh, n, d, dt, causal) == (SERVE_BH, 1125, 16, "bfloat16", False):
             serve_err = max(err_o, err_lse)
+        if (bh, n, d, dt, causal) == (16, STFT_N, 16, "bfloat16", False):
+            stft_err = max(err_o, err_lse)
     for bh, n, d, dt, causal in cases:
         check_bwd(torch, fa, gen, bh, n, d, dt, dtypes[dt], causal)
     dropped_tile_shift(torch, fa, gen, 1125, 16)
@@ -547,24 +587,27 @@ def phase_kernels(torch, clock_hz: float) -> list:
     for n in (128, 563, 1125):
         k2_shifts(torch, fa, gen, n, 16)
 
-    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err)]
+    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err, stft_err)]
     rows += time_backward(torch, F, fa, gen, clock_hz)
     rows.append(int8_kernel_row(torch))
     return rows
 
 
-def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: float) -> dict:
+def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: float,
+                 stft_err: float) -> dict:
     """K1 at the generation shape (B*H = 16: CFG-doubled batch 2 x 8 heads,
-    N = 1125, D = 16, bf16), at N = 4500 (a 2-minute window) and at the
-    serving batch (B*H = SERVE_BH at N = 1125), both causal values, by
-    device time beside the CUDA-event time of back-to-back calls, its plain
-    version and SDPA's forward. The record row is the generation shape's,
-    non-causal; its "serving_shape" entry holds the serving batch's."""
+    N = 1125, D = 16, bf16), at N = 4500 (a 2-minute window), at the
+    serving batch (B*H = SERVE_BH at N = 1125) and at the STFT UNet's level 1
+    (N = STFT_N), both causal values, by device time beside the CUDA-event
+    time of back-to-back calls, its plain version and SDPA's forward. The
+    record row is the generation shape's, non-causal; its "serving_shape"
+    and "stft_shape" entries hold those shapes'."""
     def sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
-    row = serving = None
-    for bh, n in ((16, 1125), (16, 4500), (SERVE_BH, 1125)):
+    row = None
+    shapes = {}
+    for bh, n in ((16, 1125), (16, 4500), (SERVE_BH, 1125), (16, STFT_N)):
         d = 16
         q, k, v = qkv(bh, n, d, torch.bfloat16)
         for causal in (False, True):
@@ -587,11 +630,13 @@ def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: floa
                 f"{bound_ms:.6f} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), exp bound "
                 f"{ex_ms:.6f} ({bh * pairs / 1e6:.3f} M ex2); back-to-back calls by CUDA "
                 f"events {event_ms:.5f} (K1) and {library_event_ms:.5f} (sdpa) ms")
-            if (bh, n, causal) == (SERVE_BH, 1125, False):
-                serving = {"bh": bh, "n": n, "d": d, "max_abs_err": serve_err, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                           "library_ms": library_ms}
+            if (bh, n, causal) in ((SERVE_BH, 1125, False), (16, STFT_N, False)):
+                key = "serving_shape" if bh == SERVE_BH else "stft_shape"
+                shapes[key] = {"bh": bh, "n": n, "d": d, "ms": ms, "plain_ms": plain_ms,
+                               "max_abs_err": serve_err if bh == SERVE_BH else stft_err,
+                               "bound_ms": bound_ms, "exp_bound_ms": ex_ms,
+                               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                               "library_ms": library_ms}
             if (bh, n, causal) == (16, 1125, False):
                 row = {
                     "name": "flash_attention_fwd",
@@ -607,7 +652,7 @@ def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: floa
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": library_ms,
                 }
-    row["serving_shape"] = serving
+    row.update(shapes)
     return row
 
 
@@ -1274,6 +1319,15 @@ def phase_small_train(torch) -> None:
     causal variants of text_guided. Bars of the CPU parity tests: per-task
     losses rtol 2e-3; every gradient leaf within 5e-3 * max|g_ref| of the
     leaf, that scale floored at GRAD_LEAF_FLOOR of the largest leaf's."""
+    small_train_compare(torch, tiny_train_config(), "small-train", (0, 1))
+
+
+def small_train_compare(torch, cfg, tag: str, coins, prepare=None) -> None:
+    """One train step per text_guided coin of trainers built from `cfg` on
+    the card and on the CPU, with the CPU trainer's weights (after
+    `prepare(model)`, when given), batch and draws on both: losses and
+    every gradient leaf at phase small-train's bars. Returns the (CPU,
+    card) trainers, holding the last step's gradients."""
     import dataclasses
 
     import numpy as np
@@ -1281,11 +1335,12 @@ def phase_small_train(torch) -> None:
     from jen1_tpu_torch.train.train import build_trainer
     from jen1_tpu_torch.train.trainer import StepDraws, step_generator
 
-    cfg = tiny_train_config()
     cpu, card = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
+    if prepare is not None:
+        prepare(cpu.model)
     host = tiny_batch(cfg.model_config)
 
-    for coin in (0, 1):
+    for coin in coins:
         card.model.load_state_dict(cpu.model.state_dict())
         flags = cpu._causal_flags(Coin(coin))
         draws = type(cpu).draw_randoms(cpu, step_generator("cpu", 0, coin), flags,
@@ -1305,17 +1360,19 @@ def phase_small_train(torch) -> None:
         losses_ok = all(np.isclose(metrics["card"][k], metrics["cpu"][k], rtol=2e-3, atol=0)
                         for k in metrics["cpu"] if k.startswith("loss"))
         worst, worst_name = worst_grad_leaf(card.model, [p.grad for p in cpu.model.parameters()])
-        log(f"[small-train] text_guided causal={bool(coin)}: losses card "
+        log(f"[{tag}] text_guided causal={bool(coin)}: losses card "
             + " ".join(f"{k}={v:.6f}" for k, v in metrics["card"].items())
             + f"; cpu loss/train={metrics['cpu']['loss/train']:.6f} "
             f"grad_norm={metrics['cpu']['grad_norm']:.6f}; worst gradient leaf {worst_name} "
             f"at {worst:.4f} of its bar; K1/K2/K3 launches {launched}")
         if not losses_ok or worst > 1.0 or min(launched) == 0:
             raise SystemExit("chip_smoke: the tiny train step on the card disagrees with the CPU")
+    return cpu, card
 
 
 def phase_main(torch) -> tuple:
-    """Returns the K1 launches of the two counted requests and the Jen1."""
+    """Returns the K1 launches of the two counted requests, the Jen1, the
+    two requests' audio and the device kernels of the profiled request."""
     import numpy as np
 
     from jen1_tpu_torch.api.generation import Jen1
@@ -1374,7 +1431,7 @@ def phase_main(torch) -> tuple:
                              lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
                                                    seconds=SLICE_SECONDS))
     log_kernel_time(by_name, "profile", ("flash_fwd_mma",), "K1", "the profiled request")
-    return total, jen1
+    return total, jen1, outs, sum(n for n, _ in by_name.values())
 
 
 def sync_wall(torch, fn):
@@ -3092,6 +3149,487 @@ def phase_composer(torch) -> int:
     return launched
 
 
+def snake_alphas(torch, model) -> int:
+    """Draw every Snake alpha of a CPU model from U(0.5, 1.5); returns how
+    many tensors were drawn."""
+    g = torch.Generator().manual_seed(SMALL_ALPHA_SEED)
+    drawn = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("snake.alpha"):
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+                drawn += 1
+    return drawn
+
+
+def close_report(torch, out, ref, rtol: float, atol: float):
+    """(allclose, max|diff|) of a card tensor against a CPU one."""
+    out, ref = out.detach().float().cpu(), ref.detach().float().cpu()
+    ok = out.shape == ref.shape and bool(torch.allclose(out, ref, rtol=rtol, atol=atol))
+    return ok, (out - ref).abs().max().item()
+
+
+def phase_small_features(torch) -> None:
+    """The model features of this slice at tiny widths, card against CPU:
+    Snake generate() (VDM and DDIM) and a Snake train step (alpha gradients
+    included), STFT UNet forwards with and without use_stft_context and the
+    DC bin's phase sign, the three-type MultiConditioner and a UNet with
+    global features, the reference .pth export -> import round trip, and
+    the eval metrics with a random VGGish."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+
+    from jen1_tpu_torch.ckpt.torch_export import export_reference_unet, save_reference_checkpoint
+    from jen1_tpu_torch.ckpt.torch_import import load_reference_checkpoint
+    from jen1_tpu_torch.conditioning.conditioners import (
+        assemble_conditioning, create_multi_conditioner,
+    )
+    from jen1_tpu_torch.config import (
+        ConditionerConfig, IntConfig, NumberConfig, T5Config, tiny_test_config,
+    )
+    from jen1_tpu_torch.diffusion import gdm, vdm
+    from jen1_tpu_torch.eval import metrics as em
+    from jen1_tpu_torch.eval.vggish import VGGishEmbedder
+    from jen1_tpu_torch.models.unet import unet_from_model_config
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops.conv import fp32_precision
+    from jen1_tpu_torch.ops.initializers import init_module
+    from jen1_tpu_torch.ops.stft import STFT
+
+    def fail(what):
+        raise SystemExit(f"chip_smoke: small-features: {what} on the card disagrees with the CPU")
+
+    # Snake generate(): VDM and DDIM with x_T and the step noise from one CPU stream
+    cfg = tiny_test_config()
+    cfg.model_config = dataclasses.replace(
+        cfg.model_config, use_flash_attention=True, flash_min_seq_len=128, attention_heads=1,
+        use_snake=True, tie_transformer_projections=True)
+    cpu, card = tiny_pair(torch, cfg=cfg)
+    alphas = snake_alphas(torch, cpu.model)
+    card.model.load_state_dict(cpu.model.state_dict())
+    stream = torch.Generator().manual_seed(7)
+    steps, shape = 4, (1, 520, 8)
+    x_t = torch.randn(shape, generator=stream)
+    noises = [torch.randn(shape, generator=stream) for _ in range(steps)]
+    saved = (vdm.initial_noise, gdm.initial_noise, gdm.step_noise)
+    vdm.initial_noise = gdm.initial_noise = lambda shape, generator, device: x_t.to(device)
+    gdm.step_noise = lambda x, generator, index, uniform=False: noises[index].to(x.device)
+    try:
+        for use_gdm in (False, True):
+            kw = dict(seed=5, steps=steps, seconds=13, use_gdm=use_gdm)
+            ref = cpu.generate("a snake charmer's flute", **kw)
+            before = fa.LAUNCHES
+            out = card.generate("a snake charmer's flute", **kw)
+            launched = fa.LAUNCHES - before
+            ok = out.shape == ref.shape and np.allclose(out, ref, rtol=2e-2, atol=2e-3)
+            log(f"[small-features] Snake generate() ({'DDIM' if use_gdm else 'VDM'}, {alphas} "
+                f"alphas from U(0.5, 1.5)) card vs CPU: max|diff|={np.abs(out - ref).max():.3e} "
+                f"(rtol 2e-2, atol 2e-3); K1 launches {launched}")
+            if not ok or launched == 0:
+                fail("the Snake generate()")
+    finally:
+        vdm.initial_noise, gdm.initial_noise, gdm.step_noise = saved
+
+    # the reference .pth round trip of the card's Snake UNet
+    mc = cfg.model_config
+    sd_card, sd_cpu = export_reference_unet(card.model, mc), export_reference_unet(cpu.model, mc)
+    same = set(sd_card) == set(sd_cpu) and all(torch.equal(sd_card[k], sd_cpu[k]) for k in sd_cpu)
+    with scratch_dir() as d:
+        path = str(Path(d) / "tiny_snake.pth")
+        save_reference_checkpoint(path, card.model, mc, epoch=1)
+        fresh = unet_from_model_config(mc).to("cuda")
+        load_reference_checkpoint(path, fresh, mc)
+    exact = all(torch.equal(a, b) for a, b in zip(card.model.parameters(), fresh.parameters()))
+    n_alpha = sum(k.endswith("activation.alpha") for k in sd_card)
+    log(f"[small-features] export_reference_unet: {len(sd_card)} tensors ({n_alpha} "
+        f"activation.alpha), card = CPU export {same}; -> .pth -> torch_import bit-equal {exact}")
+    if not (same and exact and n_alpha == alphas):
+        raise SystemExit("chip_smoke: small-features: the .pth round trip changed the weights")
+    del cpu, card, fresh
+
+    # a Snake train step, the alphas' gradients included
+    tcfg = tiny_train_config()
+    tcfg.model_config = dataclasses.replace(tcfg.model_config, use_snake=True)
+    cpu_tr, card_tr = small_train_compare(torch, tcfg, "small-features", (1,),
+                                          prepare=lambda m: snake_alphas(torch, m))
+    grads = [(n, p.grad) for n, p in card_tr.model.named_parameters()
+             if n.endswith("snake.alpha")]
+    finite = all(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for _, g in grads)
+    log(f"[small-features] Snake train step: {len(grads)} alpha gradient leaves on the card, "
+        f"finite and nonzero {finite}")
+    if not grads or not finite:
+        raise SystemExit("chip_smoke: small-features: an alpha gradient is zero or not finite")
+    del cpu_tr, card_tr
+
+    # the STFT: the DC bin's phase sign, and the STFT UNet forwards
+    g = torch.Generator().manual_seed(12)
+    wave = 0.3 * torch.randn((1, 2, 48_000), generator=g) + torch.tensor([-1.0, 1.0])[None, :, None]
+    stft = STFT()
+    mag_c, ph_c = stft.encode(wave)
+    mag_g, ph_g = stft.encode(wave.cuda())
+    frames = torch.nn.functional.pad(wave.reshape(2, 1, -1), (511, 511), mode="reflect")[:, 0]
+    raw = torch.fft.rfft(frames.unfold(-1, 1023, 256).cuda(), dim=-1)
+    neg = int(torch.signbit(raw[..., 0].imag).sum())
+    pi_dc = int((ph_c[:, :, 0] == float(np.float32(np.pi))).sum())
+    dc_equal = torch.equal(ph_g[:, :, 0].cpu(), ph_c[:, :, 0])
+    ok_mag, err_mag = close_report(torch, mag_g, mag_c, 1e-4, 1e-4 * mag_c.abs().max().item())
+    log(f"[small-features] STFT encode card vs CPU: magnitude max|diff|={err_mag:.3e} "
+        f"(rtol 1e-4, atol 1e-4 of the largest); DC phase equal {dc_equal} ({pi_dc} frames at "
+        f"+pi); cuFFT's own DC imaginary parts with the sign bit set: {neg} of {raw[..., 0].numel()}")
+    if not (dc_equal and ok_mag and pi_dc > 0):
+        fail("the STFT encode")
+    for use_ctx in (False, True):
+        smc = dataclasses.replace(
+            tiny_test_config().model_config, in_channels=2, out_channels=2,
+            context_channels=(3,), use_stft=True, use_stft_context=use_ctx, stft_num_fft=63,
+            stft_hop_length=16)
+        cpu_m = init_module(unet_from_model_config(smc), torch.Generator().manual_seed(11)).eval()
+        card_m = unet_from_model_config(smc).to("cuda").eval()
+        card_m.load_state_dict(cpu_m.state_dict())
+        m = smc.context_embedding_max_length
+        inputs = [0.5 * torch.randn((2, 1008, 2), generator=g) - 1.0,
+                  torch.rand((2,), generator=g)]
+        kw = dict(embedding=torch.randn((2, m, 16), generator=g),
+                  embedding_mask=torch.ones((2, m), dtype=torch.bool),
+                  channels_list=[torch.randn((2, 1008 if use_ctx else 63, 3), generator=g)])
+        with torch.no_grad(), fp32_precision():
+            ref = cpu_m(*inputs, **kw)
+            out = card_m(*[t.cuda() for t in inputs],
+                         **{k: ([c.cuda() for c in v] if isinstance(v, list) else v.cuda())
+                            for k, v in kw.items()})
+        ok, err = close_report(torch, out, ref, 2e-3, 2e-4)
+        log(f"[small-features] STFT UNet use_stft_context={use_ctx}: output {tuple(out.shape)} "
+            f"card vs CPU max|diff|={err:.3e} (rtol 2e-3, atol 2e-4)")
+        if not ok or out.shape != inputs[0].shape:
+            fail("the STFT UNet forward")
+
+    # the three conditioner types, and a UNet with global features
+    ccfg = ConditionerConfig(cond_dim=16, conditioning_type=("t5", "int", "number"),
+                             t5_config=T5Config(t5_model_name="tiny-test", max_length=8),
+                             int_config=IntConfig(max_val=16),
+                             number_config=NumberConfig(max_val=100))
+    cond_cpu = create_multi_conditioner(ccfg, device="cpu")
+    cond_card = create_multi_conditioner(ccfg, device="cuda")
+    for key, c in cond_cpu.conditioners.items():
+        cond_card.conditioners[key].load_state_dict(c.state_dict())
+    metadata = [{"prompt": "a song", "seconds_start": 3, "seconds_total": 60.0},
+                {"prompt": "prompt only"}]
+    out_cpu, out_card = cond_cpu(metadata), cond_card(metadata)
+    for key in out_cpu:
+        ok, err = close_report(torch, out_card[key][0], out_cpu[key][0], 1e-4, 1e-4)
+        masks = torch.equal(out_card[key][1].cpu(), out_cpu[key][1].cpu())
+        log(f"[small-features] conditioner {key!r}: card vs CPU max|diff|={err:.3e} "
+            f"(rtol 1e-4, atol 1e-4), masks equal {masks}")
+        if not (ok and masks):
+            fail(f"the {key} conditioner")
+    ids = dict(cross_attn_cond_ids=(), global_cond_ids=("seconds_start", "seconds_total"),
+               input_concat_ids=())
+    feats = {dev: assemble_conditioning(o, **ids)["global_cond"]
+             for dev, o in (("cpu", out_cpu), ("cuda", out_card))}
+    gmc = dataclasses.replace(tiny_test_config().model_config, context_features=32)
+    cpu_m = init_module(unet_from_model_config(gmc), torch.Generator().manual_seed(12)).eval()
+    card_m = unet_from_model_config(gmc).to("cuda").eval()
+    card_m.load_state_dict(cpu_m.state_dict())
+    x, t = torch.randn((2, 48, 8), generator=g), torch.rand((2,), generator=g)
+    emb, ch = torch.randn((2, 6, 16), generator=g), torch.randn((2, 48, 9), generator=g)
+    kw = dict(embedding_scale=2.5, batch_cfg=True, scale_cfg=True)
+    with torch.no_grad(), fp32_precision():
+        ref = cpu_m(x, t, embedding=emb, features=feats["cpu"], channels_list=[ch], **kw)
+        out = card_m(x.cuda(), t.cuda(), embedding=emb.cuda(), features=feats["cuda"],
+                     channels_list=[ch.cuda()], **kw)
+    ok, err = close_report(torch, out, ref, 5e-3, 5e-4)
+    log(f"[small-features] UNetCFG1d with global features (32 = int + number embeddings), "
+        f"batch CFG: card vs CPU max|diff|={err:.3e} (rtol 5e-3, atol 5e-4)")
+    if not ok:
+        fail("the global-features UNet")
+
+    # eval: log-mel FAD, SNR, spectral convergence, a random VGGish's embeddings
+    rng = np.random.default_rng(14)
+    sets = [(0.3 * rng.standard_normal((2, 96_000, 2))).astype(np.float32) for _ in range(2)]
+    sets[1] += 0.2 * np.sin(np.arange(96_000) * 0.05)[None, :, None].astype(np.float32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        r, c = (torch.from_numpy(a).to(dev) for a in sets)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            embed = VGGishEmbedder(seed=VGGISH_SEED, device=dev)
+        results[dev] = (em.frechet_audio_distance(r, c), em.signal_to_noise_ratio(r, c).cpu(),
+                        em.spectral_convergence(r, c).cpu(), embed(r).cpu())
+    (fad_c, snr_c, sc_c, v_c), (fad_g, snr_g, sc_g, v_g) = results["cpu"], results["cuda"]
+    ok = (abs(fad_g - fad_c) <= 1e-3 * abs(fad_c)
+          and close_report(torch, snr_g, snr_c, 1e-4, 1e-6)[0]
+          and close_report(torch, sc_g, sc_c, 1e-4, 1e-6)[0])
+    ok_v, err_v = close_report(torch, v_g, v_c, 1e-4, 1e-5 * v_c.abs().max().item())
+    log(f"[small-features] eval card vs CPU: log-mel FAD {fad_g:.6f} vs {fad_c:.6f} (rel 1e-3); "
+        f"SNR dB {snr_g.tolist()} vs {snr_c.tolist()}, spectral convergence {sc_g.tolist()} vs "
+        f"{sc_c.tolist()} (rtol 1e-4); random VGGish embeddings {tuple(v_g.shape)} max|diff|="
+        f"{err_v:.3e} (rtol 1e-4, atol 1e-5 of the largest)")
+    if not (ok and ok_v):
+        fail("an eval metric")
+
+
+def phase_snake(torch, main_kernels: int) -> tuple:
+    """Snake at full width: Jen1(longform_config() with use_snake) makes two
+    100-step 30 s VDM requests (K1 200 each, all tensor-core), a profiled
+    10-step request beside phase main's, a reference .pth export that
+    Jen1(ckpt_path=...) reads back bit for bit (and with bf16 weights keeps
+    alpha fp32); then two train steps at B = 3 (K1/K2/K3 4/4/4 each,
+    tensor-core, every alpha gradient finite and nonzero). `main_kernels`:
+    the device kernels of phase main's profiled request. Returns the K1
+    launches of the requests and of the steps, the K2 and K3 ones, and the
+    two requests' audio."""
+    import dataclasses
+
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.ckpt.torch_export import save_reference_checkpoint
+    from jen1_tpu_torch.config import longform_config
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    cfg = longform_config()
+    cfg.model_config = dataclasses.replace(cfg.model_config, use_snake=True,
+                                           tie_transformer_projections=True)
+    t0 = time.perf_counter()
+    jen1 = Jen1(config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    alphas = [p for n, p in jen1.model.named_parameters() if n.endswith("snake.alpha")]
+    log(f"[snake] Jen1(longform_config(), use_snake=True) built in "
+        f"{time.perf_counter() - t0:.2f} s; UNet params "
+        f"{sum(p.numel() for p in jen1.model.parameters())}, {len(alphas)} Snake alphas "
+        f"({sum(p.numel() for p in alphas)} values)")
+    samples = SLICE_SECONDS * jen1.sample_rate
+    _, wall = sync_wall(torch, lambda: jen1.generate("warm-up", seed=1, steps=5,
+                                                     seconds=SLICE_SECONDS))
+    log(f"[snake] 5-step warm-up request {wall:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs, launches = [], []
+    for prompt, seed in SLICE_PROMPTS:
+        before = fa.LAUNCHES
+        out, wall = sync_wall(torch, lambda: jen1.generate(
+            prompt, seed=seed, steps=SLICE_STEPS, batch_size=1, seconds=SLICE_SECONDS))
+        launches.append(fa.LAUNCHES - before)
+        outs.append(out)
+        phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
+        log(f"[snake] request seed={seed}: wall {wall:.4f} s; phases (s): {phases}; K1 "
+            f"launches {launches[-1]}; shape {out.shape}; finite {bool(np.isfinite(out).all())}")
+    total = fa.LAUNCHES
+    log(f"[snake] peak device memory {torch.cuda.max_memory_allocated()} bytes; K1 launches "
+        f"{total}, {fa.LAUNCHES_MMA} on the tensor-core route")
+    if launches != [2 * SLICE_STEPS] * len(SLICE_PROMPTS) or fa.LAUNCHES_MMA != total:
+        raise SystemExit(f"chip_smoke: snake: K1 launches per request {launches}, "
+                         f"{fa.LAUNCHES_MMA} of {total} tensor-core; want {2 * SLICE_STEPS}, all")
+    for out in outs:
+        if out.shape != (1, 2, samples) or not np.isfinite(out).all():
+            raise SystemExit(f"chip_smoke: snake: bad output shape {out.shape} or non-finite")
+    prompt, seed = SLICE_PROMPTS[0]
+    by_name = profile_window(torch, "snake-profile", f"{PROFILE_STEPS}-step request",
+                             lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                                                   seconds=SLICE_SECONDS))
+    kernels = sum(n for n, _ in by_name.values())
+    log(f"[snake] device kernels in the profiled {PROFILE_STEPS}-step request: {kernels}, phase "
+        f"main's {main_kernels}: {(kernels - main_kernels) / PROFILE_STEPS:.1f} more per "
+        f"sampler step ({kernels / main_kernels:.4f} x)")
+
+    with scratch_dir() as d:
+        path = str(Path(d) / "jen1_snake.pth")
+        _, wall = sync_wall(torch, lambda: save_reference_checkpoint(
+            path, jen1.model, cfg.model_config, epoch=1))
+        log(f"[snake] save_reference_checkpoint {wall:.3f} s, {Path(path).stat().st_size} bytes")
+        kw = dict(config=cfg, conditioner=jen1.conditioner, codec=jen1.codec, device="cuda")
+        loaded, wall = sync_wall(torch, lambda: Jen1(path, **kw))
+        exact = all(torch.equal(a, b) for a, b in
+                    zip(jen1.model.parameters(), loaded.model.parameters()))
+        del loaded
+        half = Jen1(path, weights_dtype="bfloat16", **kw)
+        dtypes = {n: p.dtype for n, p in half.model.named_parameters()}
+        del half
+    alpha_fp32 = all(dt == torch.float32 for n, dt in dtypes.items() if n.endswith("snake.alpha"))
+    n_bf16 = sum(dt == torch.bfloat16 for dt in dtypes.values())
+    log(f"[snake] Jen1(ckpt_path=.pth) in {wall:.3f} s: every UNet weight bit-equal {exact}; "
+        f"weights_dtype='bfloat16': {n_bf16} tensors bf16, every alpha fp32 {alpha_fp32}")
+    if not (exact and alpha_fp32 and n_bf16 > 0):
+        raise SystemExit("chip_smoke: snake: the .pth export did not load back as saved")
+    del jen1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = full_train_config()
+    tcfg.model_config = dataclasses.replace(tcfg.model_config, use_snake=True)
+    t0 = time.perf_counter()
+    trainer = build_trainer(tcfg, device="cuda")
+    state = trainer.init_state()
+    latents = np.random.default_rng(TRAIN_SEED).standard_normal(
+        (TRAIN_BATCH, int(TRAIN_SECONDS * 150), tcfg.model_config.in_channels)).astype(np.float32)
+    batch = trainer.prepare_batch(latents, [{"prompt": p} for p in TRAIN_PROMPTS])
+    torch.cuda.synchronize()
+    log(f"[snake] Snake trainer built and batch prepared in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    per_step = []
+    for i in range(SNAKE_TRAIN_STEPS):
+        before = launch_counts()
+        (state, m), wall = sync_wall(torch, lambda: trainer.train_step(
+            state, batch, step_generator(trainer.device, TRAIN_SEED, i),
+            np.random.default_rng((TRAIN_SEED, i))))
+        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+        grads = [p.grad for n, p in trainer.model.named_parameters() if n.endswith("snake.alpha")]
+        finite = all(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in grads)
+        loss = m["loss/train"].item()
+        log(f"[snake] train step {i}: wall {wall:.4f} s; loss/train {loss:.6f}; K1/K2/K3 "
+            f"{per_step[-1]}; {len(grads)} alpha gradients finite and nonzero {finite}; "
+            f"largest |alpha grad| {max(g.abs().max().item() for g in grads):.3e}")
+        if not (finite and np.isfinite(loss)):
+            raise SystemExit("chip_smoke: snake: a train step gave a zero or non-finite alpha "
+                             "gradient or loss")
+    counts = launch_counts()
+    log(f"[snake] train peak device memory {torch.cuda.max_memory_allocated()} bytes; "
+        f"K1/K2/K3 on the tensor-core route {mma_counts()} of {counts}")
+    if any(s != (TRAIN_LAUNCHES,) * 3 for s in per_step) or mma_counts() != counts:
+        raise SystemExit(f"chip_smoke: snake: K1/K2/K3 per step {per_step}, want "
+                         f"{TRAIN_LAUNCHES} each, all tensor-core")
+    return total, counts[0], counts[1], counts[2], outs
+
+
+def phase_stft(torch) -> int:
+    """The STFT-domain UNet at full width: UNetCFG1d at longform_config()
+    widths with use_stft and use_stft_context, 2 waveform channels in and
+    out and 3 context channels, on 30 s of 48 kHz stereo, B = 1 with batch
+    CFG (no scale_cfg), bf16 compute: the wall and peak memory of a forward (after a
+    warm-up), the output's shape, K1's launches (2 per forward, at N =
+    STFT_N, tensor-core). Returns the K1 launches of the timed forwards."""
+    import dataclasses
+
+    from jen1_tpu_torch.config import longform_config
+    from jen1_tpu_torch.models.unet import unet_from_model_config
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops.conv import fp32_precision
+    from jen1_tpu_torch.ops.initializers import init_module
+
+    cfg = longform_config()
+    mc = dataclasses.replace(cfg.model_config, in_channels=2, out_channels=2,
+                             context_channels=(3,), use_stft=True, use_stft_context=True)
+    with torch.device("cuda"):
+        model = unet_from_model_config(mc).eval()
+    init_module(model, torch.Generator(device="cuda").manual_seed(cfg.seed))
+    lengths = []
+    model.unet.downsample1.transformer.register_forward_pre_hook(
+        lambda module, args: lengths.append(args[0].shape[1]))
+    samples = STFT_SECONDS * 48_000
+    g = torch.Generator(device="cuda").manual_seed(13)
+    dt = torch.bfloat16
+    x = (0.3 * torch.randn((1, samples, 2), generator=g, device="cuda")).to(dt)
+    ctx = torch.randn((1, samples, 3), generator=g, device="cuda").to(dt)
+    emb = torch.randn((1, mc.context_embedding_max_length, mc.context_embedding_features),
+                      generator=g, device="cuda").to(dt)
+    t = torch.rand((1,), generator=g, device="cuda")
+    # batch CFG without scale_cfg: its std over the 2 waveform channels is
+    # 0 wherever they round to one bf16 value, and 0 / 0 gives NaN (the JAX
+    # UNet computes the same)
+    v = cfg.diffusion_config.variational_diffusion
+    kw = dict(embedding=emb, channels_list=[ctx], embedding_scale=v.embedding_scale,
+              batch_cfg=True, scale_cfg=False)
+    log(f"[stft] UNetCFG1d(longform widths, use_stft, use_stft_context): "
+        f"{sum(p.numel() for p in model.parameters())} params, to_in reads "
+        f"{model.unet.to_in.block.block1.project.weight.shape[1]} channels")
+
+    def forward():
+        with torch.no_grad(), fp32_precision():
+            return model(x, t, **kw)
+
+    out, wall = sync_wall(torch, forward)
+    log(f"[stft] warm-up forward {wall:.4f} s")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    lengths.clear()
+    walls = []
+    for _ in range(2):
+        out, wall = sync_wall(torch, forward)
+        walls.append(wall)
+    launched, mma = fa.LAUNCHES, fa.LAUNCHES_MMA
+    finite = bool(torch.isfinite(out).all())
+    log(f"[stft] forward walls {[round(w, 4) for w in walls]} s (30 s stereo, CFG batch 2); "
+        f"peak device memory {torch.cuda.max_memory_allocated()} bytes "
+        f"({torch.cuda.max_memory_allocated() - base} above the inputs and weights); output "
+        f"{tuple(out.shape)} {out.dtype}, finite {finite}; level-1 transformer lengths "
+        f"{lengths}; K1 launches {launched}, {mma} tensor-core")
+    if tuple(out.shape) != tuple(x.shape) or not finite:
+        raise SystemExit(f"chip_smoke: stft: output {tuple(out.shape)} for input "
+                         f"{tuple(x.shape)}, finite {finite}")
+    if lengths != [STFT_N] * 2 or launched != 4 or mma != launched:
+        raise SystemExit(f"chip_smoke: stft: level-1 lengths {lengths} (want {STFT_N}), K1 "
+                         f"{launched} launches ({mma} tensor-core), want 4, all")
+    return launched
+
+
+def phase_eval(torch, main_outs, snake_outs) -> None:
+    """The eval CLI over phase main's two requests (reference set) and
+    phase snake's (candidate set), written by save_audio as WAV: run_eval
+    on the card and on the CPU (log-mel FAD, SNR, spectral convergence) and
+    a random VGGish FAD through run_eval.evaluate on both, with walls. Bars,
+    card vs CPU: log-mel FAD rel 1e-3; VGGish FAD rel 5e-3 (62 embeddings
+    per set in 128 dimensions: rank-deficient covariances, whose square
+    roots amplify the fp32 rounding of six convs and three GEMMs; an fp32
+    square root moved such a distance by 2.6e-4 against fp64 in a CPU
+    trial); SNR and spectral convergence rel 1e-4."""
+    import contextlib
+    import io
+    import warnings
+
+    from jen1_tpu_torch.api.generation import save_audio
+    from jen1_tpu_torch.eval import run_eval
+    from jen1_tpu_torch.eval.vggish import VGGishEmbedder
+
+    with scratch_dir() as d:
+        dirs = {}
+        for tag, outs in (("main", main_outs), ("snake", snake_outs)):
+            dirs[tag] = Path(d) / tag
+            dirs[tag].mkdir()
+            for i, out in enumerate(outs):
+                save_audio(out, str(dirs[tag] / f"request{i}.wav"), 48_000)
+        args = ["--reference-dir", str(dirs["main"]), "--candidate-dir", str(dirs["snake"])]
+        reports = {}
+        for dev in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, wall = sync_wall(torch, lambda: run_eval.main(args + ["--device", dev]))
+            reports[dev] = json.loads(buf.getvalue().strip().splitlines()[-1])
+            log(f"[eval] run_eval --device {dev}: wall {wall:.3f} s; {json.dumps(reports[dev])}")
+        ref = run_eval._load_dir(str(dirs["main"]), 48_000, 30.0)
+        cand = run_eval._load_dir(str(dirs["snake"]), 48_000, 30.0)
+    vgg = {}
+    for dev in ("cuda", "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            embed = VGGishEmbedder(seed=VGGISH_SEED, device=dev)
+        vgg[dev], wall = sync_wall(torch, lambda: run_eval.evaluate(
+            ref, cand, 48_000, torch.device(dev), embed, "vggish-random"))
+        log(f"[eval] random VGGish (seed {VGGISH_SEED}) on {dev}: wall {wall:.3f} s; "
+            f"FAD {vgg[dev]['fad']:.6e}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    diffs = {k: rel(reports["cuda"][k], reports["cpu"][k])
+             for k in ("fad", "snr_db_mean", "spectral_convergence_mean")}
+    diffs["vggish_fad"] = rel(vgg["cuda"]["fad"], vgg["cpu"]["fad"])
+    bars = {"fad": 1e-3, "vggish_fad": 5e-3, "snr_db_mean": 1e-4,
+            "spectral_convergence_mean": 1e-4}
+    ok = set(reports["cuda"]) == set(reports["cpu"]) and all(
+        diffs[k] <= bars[k] for k in bars)
+    log("[eval] card vs CPU, relative differences (bars): " + ", ".join(
+        f"{k} {diffs[k]:.3e} ({bars[k]})" for k in bars))
+    if not ok:
+        raise SystemExit("chip_smoke: eval: the card's report disagrees with the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -3115,7 +3653,8 @@ def main() -> int:
     phase_small_data(torch)
     phase_small_lora(torch)
     phase_small_composer(torch)
-    k1_generation, jen1 = phase_main(torch)
+    phase_small_features(torch)
+    k1_generation, jen1, main_outs, main_kernels = phase_main(torch)
     k1_generation += phase_tasks(torch, jen1)
     k1_generation += phase_long(torch, jen1)
     k1_generation += phase_bf16_weights(torch, jen1)
@@ -3134,6 +3673,15 @@ def main() -> int:
         k1, k2_more, k3_more = phase(torch)
         k1_train, k2, k3 = k1_train + k1, k2 + k2_more, k3 + k3_more
     k1_generation += phase_composer(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_snake, k1_snake_train, k2_snake, k3_snake, snake_outs = phase_snake(torch, main_kernels)
+    k1_generation, k1_train = k1_generation + k1_snake, k1_train + k1_snake_train
+    k2, k3 = k2 + k2_snake, k3 + k3_snake
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_generation += phase_stft(torch)
+    phase_eval(torch, main_outs, snake_outs)
     for row, launches in zip(rows, (k1_generation + k1_train, k2, k3, k4)):
         row["launches"] = launches
     print(json.dumps({"kernels": rows}), flush=True)

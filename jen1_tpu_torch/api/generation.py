@@ -148,9 +148,16 @@ class Jen1:
             raise unreadable_checkpoint(ckpt_path)
         if lora_path is not None and not has_checkpoints(lora_path):
             raise unreadable_checkpoint(lora_path)
+        self.config = config or Config()
+        if ckpt_path is None and self.config.model_config.context_features is not None:
+            # jen1_tpu's Jen1 initialises random weights without global
+            # features and fails (jen1_tpu/api/generation.py:220-240 ->
+            # models/unet.py:135); the port adds no feature it lacks
+            raise ValueError(
+                "model_config.context_features (global conditioning) needs ckpt_path: "
+                "jen1_tpu's Jen1 cannot initialise such a model at random")
         self.device = resolve_device(device)
         self.sample_rate = sample_rate
-        self.config = config or Config()
         self.cross_attn_cond_ids = tuple(cross_attn_cond_ids)
         self.global_cond_ids = tuple(global_cond_ids)
         self.input_concat_ids = tuple(input_concat_ids)

@@ -4,10 +4,8 @@ A copy of every field of the JAX `Config` tree, with the same names and
 defaults, the JSON round trip of `jen1_tpu/config.py:318-381` (a JSON written
 by the JAX `Config.to_json()` loads; keys that neither package knows are
 ignored, as there) and the `longform_config()`, `tiny_test_config()`,
-`composer_config()` and `tiny_composer_test_config()` presets. Fields
-whose modules the port does not have yet keep their JAX defaults; any
-other value raises NotImplementedError naming the ROADMAP Queue 1 item
-that ports them (`UNPORTED`). `weights_path` and
+`composer_config()` and `tiny_composer_test_config()` presets. Every
+field builds what the JAX package builds from it. `weights_path` and
 `codec_weights_path` name local torch state dicts that the T5 conditioner
 and `Jen1`'s codec load. `compile_effort`, `use_fp16`,
 `is_finetuning` and `mesh_axis_names` are carried for the round trip and
@@ -123,9 +121,6 @@ class ModelConfig:
     # backward instead of storing their activations (torch.utils.checkpoint)
     remat: bool = False
 
-    def __post_init__(self):
-        _refuse_unported(self, "model_config")
-
 
 @dataclass
 class OptimizerConfig:
@@ -177,9 +172,6 @@ class ConditionerConfig:
     t5_config: T5Config = field(default_factory=T5Config)
     int_config: IntConfig = field(default_factory=IntConfig)
     number_config: NumberConfig = field(default_factory=NumberConfig)
-
-    def __post_init__(self):
-        _refuse_unported(self, "conditioner_config")
 
 
 @dataclass
@@ -272,37 +264,10 @@ class Config:
 
 # ROADMAP Queue 1 items, by title, that port what the port refuses today
 ROADMAP_MESH = "ROADMAP Queue 1, 'parallel/mesh.py on torch.distributed'"
-_MODEL_FEATURES = "ROADMAP Queue 1, 'Remaining model, conditioning and eval features'"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to jen1_tpu_torch yet ({item})")
-
-
-# Fields whose modules are not ported yet, by dataclass, with the ROADMAP
-# Queue 1 item that ports them; only the JAX default is accepted.
-UNPORTED = {
-    "ModelConfig": {
-        "use_snake": _MODEL_FEATURES, "use_stft": _MODEL_FEATURES,
-        "use_stft_context": _MODEL_FEATURES, "stft_num_fft": _MODEL_FEATURES,
-        "stft_hop_length": _MODEL_FEATURES,
-    },
-    "ConditionerConfig": {"int_config": _MODEL_FEATURES, "number_config": _MODEL_FEATURES},
-}
-
-
-def _refuse_unported(obj, path: str) -> None:
-    """NotImplementedError for an unported field that is not at its default."""
-    defaults = {f.name: f for f in dataclasses.fields(obj)}
-    for name, item in UNPORTED[type(obj).__name__].items():
-        f = defaults[name]
-        default = f.default_factory() if f.default_factory is not dataclasses.MISSING \
-            else f.default
-        if getattr(obj, name) != default:
-            where = f"{path}.{name}" if path else name
-            raise NotImplementedError(
-                f"{where}={getattr(obj, name)!r} is not ported to jen1_tpu_torch yet "
-                f"(only the default {default!r} is; {item})")
 
 
 def _dataclass_from_dict(cls, d):

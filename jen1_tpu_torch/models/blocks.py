@@ -5,7 +5,8 @@ Submodules carry the flax names of the JAX package (`block0`,
 `transformer`, `to_scale_shift`, ...) so that `ckpt/from_jax.py` maps
 parameters by path. Only the block configurations the UNet builds are
 ported: pre-downsample blocks with skips and post-upsample blocks that
-consume them. Snake activations are not ported yet.
+consume them. `use_snake` swaps every conv block's SiLU for Snake
+(`ops/snake.py`, submodule `snake`).
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ from jen1_tpu_torch.ops.attention import Attention
 from jen1_tpu_torch.ops.conv import Downsample1d, OmniConv1d, Upsample1d
 from jen1_tpu_torch.ops.linear import Linear
 from jen1_tpu_torch.ops.norm import GroupNorm
+from jen1_tpu_torch.ops.snake import Snake1d
 
 
 class ConvBlock1d(nn.Module):
-    """GroupNorm -> (FiLM) -> SiLU -> OmniConv1d."""
+    """GroupNorm -> (FiLM) -> SiLU or Snake -> OmniConv1d."""
 
     def __init__(
         self,
@@ -34,9 +36,11 @@ class ConvBlock1d(nn.Module):
         dilation: int = 1,
         num_groups: int = 8,
         use_norm: bool = True,
+        use_snake: bool = False,
     ):
         super().__init__()
         self.groupnorm = GroupNorm(num_groups, in_channels) if use_norm else None
+        self.snake = Snake1d(in_channels) if use_snake else None
         self.project = OmniConv1d(
             in_channels, out_channels, kernel_size, stride=stride, dilation=dilation
         )
@@ -52,7 +56,8 @@ class ConvBlock1d(nn.Module):
         if scale_shift is not None:
             scale, shift = scale_shift
             x = x * (scale + 1.0) + shift
-        return self.project(F.silu(x), causal=causal)
+        x = F.silu(x) if self.snake is None else self.snake(x)
+        return self.project(x, causal=causal)
 
 
 class MappingToScaleShift(nn.Module):
@@ -76,10 +81,11 @@ class ResnetBlock1d(nn.Module):
         out_channels: int,
         num_groups: int = 8,
         mapping_features: Optional[int] = None,
+        use_snake: bool = False,
     ):
         super().__init__()
         self.block1 = ConvBlock1d(
-            in_channels, out_channels, num_groups=num_groups
+            in_channels, out_channels, num_groups=num_groups, use_snake=use_snake
         )
         self.to_scale_shift = (
             MappingToScaleShift(mapping_features, out_channels)
@@ -87,7 +93,7 @@ class ResnetBlock1d(nn.Module):
             else None
         )
         self.block2 = ConvBlock1d(
-            out_channels, out_channels, num_groups=num_groups
+            out_channels, out_channels, num_groups=num_groups, use_snake=use_snake
         )
         self.to_out = (
             OmniConv1d(in_channels, out_channels, 1)
@@ -112,13 +118,13 @@ class Patcher(nn.Module):
     """Resnet + pixel-unshuffle-1d: (B, L*p, C) -> (B, L, C*p)."""
 
     def __init__(self, in_channels: int, out_channels: int, patch_size: int,
-                 mapping_features: Optional[int] = None):
+                 mapping_features: Optional[int] = None, use_snake: bool = False):
         super().__init__()
         assert out_channels % patch_size == 0
         self.patch_size = patch_size
         self.block = ResnetBlock1d(
             in_channels, out_channels // patch_size, num_groups=1,
-            mapping_features=mapping_features,
+            mapping_features=mapping_features, use_snake=use_snake,
         )
 
     def forward(self, x: torch.Tensor, mapping: Optional[torch.Tensor] = None):
@@ -134,13 +140,13 @@ class Unpatcher(nn.Module):
     """Pixel-shuffle-1d + resnet: (B, L, C*p) -> (B, L*p, C_out)."""
 
     def __init__(self, in_channels: int, out_channels: int, patch_size: int,
-                 mapping_features: Optional[int] = None):
+                 mapping_features: Optional[int] = None, use_snake: bool = False):
         super().__init__()
         assert in_channels % patch_size == 0
         self.patch_size = patch_size
         self.block = ResnetBlock1d(
             in_channels // patch_size, out_channels, num_groups=1,
-            mapping_features=mapping_features,
+            mapping_features=mapping_features, use_snake=use_snake,
         )
 
     def forward(self, x: torch.Tensor, mapping: Optional[torch.Tensor] = None):
@@ -290,6 +296,7 @@ class DownsampleBlock1d(nn.Module):
         kernel_multiplier: int = 2,
         context_channels: int = 0,
         mapping_features: Optional[int] = None,
+        use_snake: bool = False,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -299,6 +306,7 @@ class DownsampleBlock1d(nn.Module):
             self.add_module(f"block{i}", ResnetBlock1d(
                 out_channels + (context_channels if i == 0 else 0), out_channels,
                 num_groups=num_groups, mapping_features=mapping_features,
+                use_snake=use_snake,
             ))
         self.transformer = _transformer(attn, out_channels) if attn.num_blocks > 0 else None
 
@@ -334,6 +342,7 @@ class UpsampleBlock1d(nn.Module):
         use_nearest: bool = False,
         use_skip_scale: bool = False,
         mapping_features: Optional[int] = None,
+        use_snake: bool = False,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -342,6 +351,7 @@ class UpsampleBlock1d(nn.Module):
             self.add_module(f"block{i}", ResnetBlock1d(
                 in_channels + skip_channels, in_channels,
                 num_groups=num_groups, mapping_features=mapping_features,
+                use_snake=use_snake,
             ))
         self.transformer = _transformer(attn, in_channels) if attn.num_blocks > 0 else None
         self.upsample = Upsample1d(in_channels, out_channels, factor, use_nearest)
@@ -363,9 +373,10 @@ class BottleneckBlock1d(nn.Module):
     """Resnet -> [Transformer1d] -> resnet."""
 
     def __init__(self, channels: int, num_groups: int, attn: _AttnArgs,
-                 mapping_features: Optional[int] = None):
+                 mapping_features: Optional[int] = None, use_snake: bool = False):
         super().__init__()
-        kw = dict(num_groups=num_groups, mapping_features=mapping_features)
+        kw = dict(num_groups=num_groups, mapping_features=mapping_features,
+                  use_snake=use_snake)
         self.pre_block = ResnetBlock1d(channels, channels, **kw)
         self.transformer = _transformer(attn, channels) if attn.num_blocks > 0 else None
         self.post_block = ResnetBlock1d(channels, channels, **kw)

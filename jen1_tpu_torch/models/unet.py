@@ -5,8 +5,11 @@ The encoder cache (`encoder_cache` / `return_encoder_cache`) carries the
 pre-bottleneck feature and the skips of levels 1..n from a full forward to
 decoder-only forwards (Faster-Diffusion encoder propagation, the samplers'
 `encoder_reuse`). `remat` recomputes each down block, the bottleneck and
-each up block in the backward (`torch.utils.checkpoint`). Not ported yet:
-STFT mode.
+each up block in the backward (`torch.utils.checkpoint`). `use_snake`
+swaps every conv block's SiLU for Snake. `use_stft` runs the UNet on the
+STFT of a waveform input (`ops/stft.py`: magnitude and phase channels, the
+context STFT-encoded too with `use_stft_context`) and inverts its output
+back to the input's length.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from jen1_tpu_torch.models.blocks import (
 )
 from jen1_tpu_torch.ops.embeddings import FixedEmbedding, TimePositionalEmbedding, rand_bool
 from jen1_tpu_torch.ops.linear import Linear
+from jen1_tpu_torch.ops.stft import STFT
 
 
 # (pre-bottleneck feature, per-level skips of levels 1..n): a plain tuple of
@@ -59,6 +63,7 @@ class UNet1d(nn.Module):
         kernel_multiplier_downsample: int = 2,
         use_nearest_upsample: bool = False,
         use_skip_scale: bool = True,
+        use_snake: bool = False,
         out_channels: Optional[int] = None,
         context_features: Optional[int] = None,
         context_features_multiplier: int = 4,
@@ -71,6 +76,10 @@ class UNet1d(nn.Module):
         use_flash_attention: bool = False,
         flash_min_seq_len: int = 512,
         remat: bool = False,
+        use_stft: bool = False,
+        use_stft_context: bool = False,
+        stft_num_fft: int = 1023,
+        stft_hop_length: int = 256,
     ):
         super().__init__()
         n = len(multipliers) - 1
@@ -79,7 +88,14 @@ class UNet1d(nn.Module):
         self.num_layers = n
         self.use_context_time = use_context_time
         self.context_features = context_features
+        # STFT mode (jen1_tpu/models/unet.py:85-93): C waveform channels
+        # become C * stft_channels stacked magnitude and phase channels
+        self.stft = STFT(num_fft=stft_num_fft, hop_length=stft_hop_length) if use_stft else None
+        self.use_stft_context = use_stft_context
+        stft_channels = (stft_num_fft // 2 + 1) * 2 if use_stft else 1
         cc = list(context_channels)
+        if cc and use_stft and use_stft_context:
+            cc[0] *= stft_channels
         self.context_channels = cc + [0] * (n + 1 - len(cc))
         mf = (
             channels * context_features_multiplier
@@ -102,9 +118,9 @@ class UNet1d(nn.Module):
                 use_flash_attention, flash_min_seq_len,
             )
 
-        common = dict(mapping_features=mf)
+        common = dict(mapping_features=mf, use_snake=use_snake)
         self.to_in = Patcher(
-            in_channels + self.context_channels[0], channels * multipliers[0],
+            in_channels * stft_channels + self.context_channels[0], channels * multipliers[0],
             patch_size, **common,
         )
         for i in range(n):
@@ -128,7 +144,8 @@ class UNet1d(nn.Module):
                 use_skip_scale=use_skip_scale, **common,
             ))
         self.to_out = Unpatcher(
-            channels * multipliers[0], out_channels or in_channels, patch_size, **common
+            channels * multipliers[0], (out_channels or in_channels) * stft_channels,
+            patch_size, **common,
         )
 
     def _get_channels(self, channels_list, layer: int) -> Optional[torch.Tensor]:
@@ -185,7 +202,14 @@ class UNet1d(nn.Module):
         cached features (jen1_tpu/models/unet.py:159-168, 215-223). With
         `return_encoder_cache` the forward returns (out, cache); a full
         forward's cache is its own pre-bottleneck feature and skips, a
-        decoder-only forward's the cache it was given."""
+        decoder-only forward's the cache it was given. In STFT mode x is a
+        waveform (B, T, C) and so is the output; the cache holds STFT-domain
+        features."""
+        wave_len, x_dtype = x.shape[1], x.dtype
+        if self.stft is not None:
+            if self.use_stft_context and channels_list is not None:
+                channels_list = [self._stft_encode(c) for c in channels_list]
+            x = self._stft_encode(x)
         channels = self._get_channels(channels_list, 0)
         if channels is not None:
             x = torch.cat([x, channels.to(x.dtype)], dim=-1)
@@ -218,7 +242,15 @@ class UNet1d(nn.Module):
         (skip0,) = skips_list.pop()
         x, skip0 = _crop_to_common_length(x, skip0)
         out = self.to_out(x + skip0, mapping=mapping)
+        if self.stft is not None:
+            # back to the waveform at the input's length, in fp32
+            out = self.stft.decode1d(out.transpose(1, 2).float(), length=wave_len)
+            out = out.transpose(1, 2).to(x_dtype)
         return (out, cache) if return_encoder_cache else out
+
+    def _stft_encode(self, wave: torch.Tensor) -> torch.Tensor:
+        """(B, T, C) waveform -> (B, L_frames, 2 C F) in wave's dtype."""
+        return self.stft.encode1d(wave.transpose(1, 2)).transpose(1, 2).to(wave.dtype)
 
 
 class UNetCFG1d(nn.Module):
@@ -354,6 +386,7 @@ def unet_from_model_config(mc) -> UNetCFG1d:
         kernel_multiplier_downsample=mc.kernel_multiplier_downsample,
         use_nearest_upsample=mc.use_nearest_upsample,
         use_skip_scale=mc.use_skip_scale,
+        use_snake=mc.use_snake,
         out_channels=mc.out_channels,
         context_features=mc.context_features,
         context_features_multiplier=mc.context_features_multiplier,
@@ -365,4 +398,8 @@ def unet_from_model_config(mc) -> UNetCFG1d:
         use_flash_attention=mc.use_flash_attention,
         flash_min_seq_len=mc.flash_min_seq_len,
         remat=mc.remat,
+        use_stft=mc.use_stft,
+        use_stft_context=mc.use_stft_context,
+        stft_num_fft=mc.stft_num_fft,
+        stft_hop_length=mc.stft_hop_length,
     )

@@ -1,5 +1,5 @@
-"""Time and null-context embeddings and the CFG dropout draw (port of
-jen1_tpu/ops/embeddings.py)."""
+"""Time, number and null-context embeddings and the CFG dropout draw (port
+of jen1_tpu/ops/embeddings.py)."""
 
 from __future__ import annotations
 
@@ -73,3 +73,18 @@ class FixedEmbedding(nn.Module):
         assert length <= self.max_length, "input length exceeds max_length"
         emb = self.embedding[:length].to(x.dtype)
         return emb[None].expand(b, length, emb.shape[-1])
+
+
+class NumberEmbedder(nn.Module):
+    """Numbers -> Fourier embeddings (jen1_tpu/ops/embeddings.py:92-105):
+    a TimePositionalEmbedding (submodule `embedding`) over the flattened
+    fp32 values, reshaped to x's shape + (features,)."""
+
+    def __init__(self, features: int, dim: int = 256):
+        super().__init__()
+        self.features = features
+        self.embedding = TimePositionalEmbedding(dim, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        return self.embedding(x.reshape(-1)).reshape(*x.shape, self.features)

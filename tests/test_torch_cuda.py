@@ -609,3 +609,61 @@ def test_generate_tracks_on_cuda_matches_cpu(cuda_device, monkeypatch):
     assert fa.LAUNCHES > before
     assert out.shape == ref.shape == (1, 2, 2, 13 * 1600) and np.isfinite(out).all()
     assert np.allclose(out, ref, rtol=2e-2, atol=2e-3), float(np.abs(out - ref).max())
+
+
+def test_snake_on_cuda_matches_cpu(cuda_device):
+    """snake() in fp32 (rtol 1e-6) and bf16 (one bf16 step, rtol 2^-7)."""
+    from jen1_tpu_torch.ops.snake import snake
+
+    g = torch.Generator().manual_seed(3)
+    x = 3.0 * torch.randn((2, 64, 16), generator=g)
+    alpha = torch.rand(16, generator=g) + 0.5
+    for dtype, rtol in ((torch.float32, 1e-6), (torch.bfloat16, 2**-7)):
+        ref = snake(x.to(dtype), alpha)
+        out = snake(x.to(dtype).cuda(), alpha.cuda())
+        assert out.dtype == dtype
+        assert torch.allclose(out.float().cpu(), ref.float(), rtol=rtol, atol=1e-6)
+
+
+def test_stft_on_cuda_matches_cpu_dc_sign_included(cuda_device):
+    """STFT encode on the card: the DC phase of frames with a negative DC
+    component is +pi as on the CPU (and in JAX), the magnitude within 1e-4
+    of the largest; decode1d back to the wave within 1e-5 of its peak."""
+    from jen1_tpu_torch.ops.stft import STFT
+
+    g = torch.Generator().manual_seed(4)
+    wave = 0.3 * torch.randn((1, 2, 24_000), generator=g) + torch.tensor([-1.0, 1.0])[:, None]
+    stft = STFT()
+    mag, phase = stft.encode(wave)
+    mag_g, phase_g = stft.encode(wave.cuda())
+    assert (phase[:, 0, 0] == torch.pi).all()
+    assert torch.equal(phase_g[:, :, 0].cpu(), phase[:, :, 0])
+    assert torch.allclose(mag_g.cpu(), mag, rtol=1e-4, atol=1e-4 * mag.abs().max().item())
+    back = stft.decode1d(stft.encode1d(wave.cuda()), length=wave.shape[-1]).cpu()
+    assert (back - wave).abs().max().item() <= 1e-5 * wave.abs().max().item()
+
+
+def test_stft_snake_unet_on_cuda_matches_cpu(cuda_device):
+    """A tiny UNetCFG1d with use_snake, use_stft and use_stft_context,
+    fp32: card against CPU at the plain-forward bar (rtol 2e-3, atol 2e-4)."""
+    import dataclasses
+
+    from jen1_tpu_torch.config import tiny_test_config
+    from jen1_tpu_torch.models.unet import unet_from_model_config
+    from jen1_tpu_torch.ops.conv import fp32_precision
+    from jen1_tpu_torch.ops.initializers import init_module
+
+    mc = dataclasses.replace(tiny_test_config().model_config, in_channels=2, out_channels=2,
+                             context_channels=(3,), use_snake=True, use_stft=True,
+                             use_stft_context=True, stft_num_fft=63, stft_hop_length=16)
+    cpu = init_module(unet_from_model_config(mc), torch.Generator().manual_seed(5)).eval()
+    card = unet_from_model_config(mc).to("cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(6)
+    x, t = torch.randn((2, 1008, 2), generator=g) - 1.0, torch.rand((2,), generator=g)
+    emb, ctx = torch.randn((2, 6, 16), generator=g), torch.randn((2, 1008, 3), generator=g)
+    with torch.no_grad(), fp32_precision():
+        ref = cpu(x, t, embedding=emb, channels_list=[ctx])
+        out = card(x.cuda(), t.cuda(), embedding=emb.cuda(), channels_list=[ctx.cuda()])
+    assert out.shape == x.shape
+    assert torch.allclose(out.cpu(), ref, rtol=2e-3, atol=2e-4)

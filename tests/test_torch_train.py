@@ -605,18 +605,45 @@ def test_jax_config_json_loads(tmp_path, which):
         shared_fields(longform_config(), ref)
 
 
-@pytest.mark.parametrize("key,value,field", [
-    ("model_config.use_snake", True, None), ("model_config.use_stft", True, None),
-    ("model_config.stft_hop_length", 128, None), ("model_config.use_stft_context", True, None),
-    ("conditioner_config.int_config.max_val", 60, "conditioner_config.int_config"),
+@pytest.mark.parametrize("key,value", [
+    ("model_config.use_snake", True), ("model_config.use_stft", True),
+    ("model_config.stft_hop_length", 128), ("model_config.use_stft_context", True),
+    ("conditioner_config.int_config.max_val", 60),
 ])
-def test_jax_config_with_unported_field_raises(key, value, field):
-    """A JAX JSON whose unported fields leave their defaults would build
-    another model than JAX does: the port refuses it, naming the field and
-    the ROADMAP item, instead of dropping the field."""
+def test_jax_config_with_model_feature_fields_loads(key, value):
+    """A JAX JSON with a model-feature field off its default loads, keeps
+    the value and builds the model JAX builds from it: the UNet (on the
+    meta device: Config() is full width) with Snake in every conv block or
+    the STFT front and back, or the int conditioner's 61-row table."""
     d = json.loads(JaxConfig().override(**{key: value}).to_json())
-    with pytest.raises(NotImplementedError, match=f"{field or key}=.*ROADMAP Queue 1, '"):
-        Config.from_dict(d)
+    cfg = Config.from_dict(d)
+    section, *rest = key.split(".")
+    node = getattr(cfg, section)
+    for name in rest:
+        node = getattr(node, name)
+    assert node == value
+    mc = cfg.model_config
+    if section == "model_config":
+        with torch.device("meta"):
+            model = port_unet(mc)
+        snakes = [m for m in model.modules() if type(m).__name__ == "Snake1d"]
+        assert bool(snakes) == mc.use_snake
+        assert (model.unet.stft is not None) == mc.use_stft
+        stft_channels = (mc.stft_num_fft // 2 + 1) * 2 if mc.use_stft else 1
+        context = mc.context_channels[0] * (stft_channels if mc.use_stft_context else 1)
+        assert model.unet.to_in.block.block1.project.weight.shape[1] == (
+            mc.in_channels * stft_channels + context)
+        assert model.unet.to_out.block.block2.project.weight.shape[0] == (
+            mc.out_channels * stft_channels)
+        if mc.use_stft:
+            assert model.unet.stft.hop_length == mc.stft_hop_length
+    else:
+        from jen1_tpu_torch.conditioning.conditioners import IntConditioner
+
+        c = cfg.conditioner_config
+        table = IntConditioner(c.cond_dim, c.int_config.min_val, c.int_config.max_val,
+                               device="cpu").embedding
+        assert table.shape == (61, c.cond_dim)
 
 
 @pytest.mark.parametrize("key", ["conditioner_config.t5_config.weights_path",

@@ -235,9 +235,9 @@ class TestT5Family:
 
 def reference_pth(tmp_path, mc):
     """A reference-layout .pth of random weights for `mc` (tied transformer
-    projections), written by the JAX exporter."""
-    from jen1_tpu.ckpt.torch_export import save_reference_checkpoint
+    projections), written by the port's exporter."""
     from jen1_tpu.models.unet import unet_from_model_config as jax_unet
+    from jen1_tpu_torch.ckpt.torch_export import save_reference_checkpoint
 
     params = random_params(unet_shapes(jax_unet(mc), mc), seed=8)
     path = tmp_path / "jen1_tiny.pth"

@@ -21,7 +21,6 @@ import torch
 
 from jen1_tpu.api.generation import cast_weights_bf16 as jax_cast_weights_bf16
 from jen1_tpu.ckpt.checkpoint import CheckpointManager as JaxCheckpointManager
-from jen1_tpu.ckpt.torch_export import save_reference_checkpoint
 from jen1_tpu.codec import model as jax_codec
 from jen1_tpu.codec import torch_keys as jax_torch_keys
 from jen1_tpu.conditioning import conditioners as jax_cond
@@ -30,6 +29,7 @@ from jen1_tpu.models.unet import unet_from_model_config as jax_unet
 from jen1_tpu_torch.api.generation import Jen1, cast_weights_bf16
 from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
 from jen1_tpu_torch.ckpt.from_jax import _target
+from jen1_tpu_torch.ckpt.torch_export import save_reference_checkpoint
 from jen1_tpu_torch.codec import model as port_codec
 from jen1_tpu_torch.codec import torch_keys as port_torch_keys
 from jen1_tpu_torch.conditioning import conditioners as port_cond
@@ -56,7 +56,7 @@ SR, SECONDS, STEPS, SEED = 1600, 13, 2, 3
 @pytest.fixture(scope="module")
 def reference_pth(tmp_path_factory):
     """A reference-format .pth of random weights for the tiny flash model,
-    written by the JAX exporter (tied transformer projections)."""
+    written by the port's exporter (tied transformer projections)."""
     jcfg, _ = flash_model_configs()
     mc = dataclasses.replace(jcfg.model_config, tie_transformer_projections=True)
     params = random_params(unet_shapes(jax_unet(mc), mc), seed=4)

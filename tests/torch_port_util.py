@@ -57,12 +57,13 @@ def random_params(shape_tree, seed: int):
     return walk(shape_tree)
 
 
-def jen1_pair(codec_config=TINY_CODEC, ckpt_path=None):
+def jen1_pair(codec_config=TINY_CODEC, ckpt_path=None, configs=None, param_fn=None):
     """A jen1_tpu `Jen1` and a jen1_tpu_torch `Jen1(device="cpu")` with the
-    same UNet (flash path engaged, `flash_model_configs`), T5 and codec
-    (encoder, decoder and RVQ) weights: tests/test_api.py's tiny model. With
-    `ckpt_path` both load their UNet from it; else both get the same random
-    UNet weights."""
+    same UNet (flash path engaged, `flash_model_configs`, unless `configs`
+    gives the (JAX, port) pair), T5 and codec (encoder, decoder and RVQ)
+    weights: tests/test_api.py's tiny model. With `ckpt_path` both load their
+    UNet from it; else both get the same random UNet weights, passed through
+    `param_fn` when given."""
     from jen1_tpu.api.generation import Jen1 as JJen1
     from jen1_tpu.codec.model import EncodecConfig as JCodecConfig, EncodecModel as JCodec
     from jen1_tpu.conditioning import conditioners as jcond
@@ -70,7 +71,7 @@ def jen1_pair(codec_config=TINY_CODEC, ckpt_path=None):
     from jen1_tpu_torch.codec.model import EncodecConfig, EncodecModel
     from jen1_tpu_torch.conditioning import conditioners as pcond
 
-    jcfg, pcfg = flash_model_configs()
+    jcfg, pcfg = configs or flash_model_configs()
     mc = jcfg.model_config
     jcodec = JCodec(JCodecConfig(**codec_config))
     jt5 = jcond.T5Conditioner(output_dim=mc.context_embedding_features,
@@ -80,6 +81,8 @@ def jen1_pair(codec_config=TINY_CODEC, ckpt_path=None):
                codec=jcodec, conditioner=jcond.MultiConditioner({"prompt": jt5}))
     if ckpt_path is None:
         params = random_params(unet_shapes(jj.model, mc), seed=1)
+        if param_fn is not None:
+            params = param_fn(params)
         jj._params = params  # the weights generate() samples with
 
     pcodec = EncodecModel(EncodecConfig(**codec_config), device="cpu")
@@ -174,6 +177,31 @@ def assert_close(port, ref, rtol: float, atol: float) -> None:
     np.testing.assert_allclose(
         np.asarray(port, np.float32), np.asarray(ref, np.float32), rtol=rtol, atol=atol
     )
+
+
+def tiny_model_configs(**model_kw):
+    """The JAX and port tiny_test_config() with the model_config fields
+    `model_kw`."""
+    from jen1_tpu.config import tiny_test_config as jax_tiny
+    from jen1_tpu_torch.config import tiny_test_config as port_tiny
+
+    jcfg, pcfg = jax_tiny(), port_tiny()
+    jcfg.model_config = dataclasses.replace(jcfg.model_config, **model_kw)
+    pcfg.model_config = dataclasses.replace(pcfg.model_config, **model_kw)
+    return jcfg, pcfg
+
+
+def with_alphas(params, seed: int = 0):
+    """`params` with every Snake `alpha` leaf drawn from U(0.5, 1.5), as a
+    trained Snake keeps it (random_params draws N(0, 1))."""
+    g = rng(seed)
+
+    def walk(tree):
+        return {k: walk(v) if hasattr(v, "items")
+                else (g.uniform(0.5, 1.5, v.shape).astype(np.float32) if k == "alpha" else v)
+                for k, v in tree.items()}
+
+    return walk(params)
 
 
 def flash_model_configs(flash_min_seq_len: int = 128):
