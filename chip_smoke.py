@@ -16,9 +16,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    its route (bf16: tensor cores; fp32: scalar); what a
                    dropped ragged tile, K1 with a single bf16 P or K2 with a
                    single bf16 dS would shift; K1 timed at the generation
-                   shape, at N = 4500, at the serving batch (B*H 64) and at
-                   the STFT UNet's level 1 (N = 1407; checked there too), K2/K3
-                   at the training shape, both causal values, in device time
+                   shape, at N = 4500, at the serving batch (B*H 64), at
+                   the STFT UNet's level 1 (N = 1407; checked there too) and
+                   at a tp=2 rank's heads (B*H 8), K2/K3 at the training
+                   shape and a tp=2 rank's (B*H 16; K1 there too), both
+                   causal values, in device time
                    (torch.profiler; CUDA events beside it), beside their plain
                    versions, their bounds (bytes / operations, and the ex2
                    unit) and the SDPA yardsticks. K4 (int8 weight-only
@@ -169,10 +171,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    the card and on the CPU (log-mel FAD, SNR, spectral
                    convergence) and a random VGGish FAD on both: walls,
                    card against CPU.
-The phases run in the order small-*, main .. serve, flagship, train, lora,
-wav-train, composer, snake, stft, eval (small-data, small-lora,
-small-composer and small-features after small-serve). The line before the
-last is the `{"kernels": [...]}` record;
+ 30. small-mesh  - `torchrun --standalone --nproc_per_node 1 -m
+                   jen1_tpu_torch.train.train --distributed --fsdp` over a
+                   tiny latents directory: NCCL, exit 0, one checkpoint that
+                   loads into a single-process trainer bit for bit; a tiny
+                   Jen1 with mesh = make_mesh() (NCCL, world 1) against no
+                   mesh, on the card.
+ 31. mesh        - an in-process NCCL group of one rank: main's Jen1 with
+                   mesh = make_mesh(): a warm-up and two 100-step 30 s
+                   requests with main's seeds (walls beside main's,
+                   max|diff| to main's audio, K1 200 each); a trainer with
+                   fsdp over the mesh beside one without (full width, B=3,
+                   30 s): losses and gradient leaves every step, walls,
+                   peak memory, K1/K2/K3 4/4/4, the gathered checkpoint's
+                   save wall.
+The phases run in the order small-*, main .. serve, mesh, flagship, train,
+lora, wav-train, composer, snake, stft, eval (small-data, small-lora,
+small-composer, small-features and small-mesh after small-serve). The line
+before the last is the `{"kernels": [...]}` record;
 the last line
 is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -326,6 +342,13 @@ SNAKE_TRAIN_STEPS = 2
 # 1407 at level 1 after the factor-4 downsample, where K1 runs
 STFT_SECONDS = 30
 STFT_N = 1407
+# the per-rank shapes of a tp=2 mesh (the heads split in two): generation's
+# B*H 16 (CFG-doubled batch 2 x 8 heads) and training's 32
+TP2_GEN_BH = 8
+TP2_TRAIN_BH = 16
+MESH_TRAIN_WARMUP = 2
+MESH_TRAIN_STEPS = 3
+SMALL_MESH_STEPS = 2
 # small-features: Snake alphas drawn from U(0.5, 1.5), as a trained Snake keeps them
 SMALL_ALPHA_SEED = 3
 # eval: the random VGGish weights' seed
@@ -551,7 +574,10 @@ def phase_kernels(torch, clock_hz: float) -> list:
               for c in (False, True)]
     # the STFT-domain UNet's level 1 (phase stft)
     cases += [(16, STFT_N, 16, dt, c) for dt in ("bfloat16", "float32") for c in (False, True)]
-    k1_err = serve_err = stft_err = 0.0
+    # a tp=2 rank's generation heads (its training heads, B*H 16, are above)
+    cases += [(TP2_GEN_BH, 1125, 16, dt, c) for dt in ("bfloat16", "float32")
+              for c in (False, True)]
+    k1_err = serve_err = stft_err = tp2_err = 0.0
     for bh, n, d, dt, causal in cases:
         q, k, v = qkv(bh, n, d, dtypes[dt])
         before = fa.LAUNCHES_MMA
@@ -579,6 +605,8 @@ def phase_kernels(torch, clock_hz: float) -> list:
             serve_err = max(err_o, err_lse)
         if (bh, n, d, dt, causal) == (16, STFT_N, 16, "bfloat16", False):
             stft_err = max(err_o, err_lse)
+        if (bh, n, d, dt, causal) == (TP2_GEN_BH, 1125, 16, "bfloat16", False):
+            tp2_err = max(err_o, err_lse)
     for bh, n, d, dt, causal in cases:
         check_bwd(torch, fa, gen, bh, n, d, dt, dtypes[dt], causal)
     dropped_tile_shift(torch, fa, gen, 1125, 16)
@@ -587,27 +615,28 @@ def phase_kernels(torch, clock_hz: float) -> list:
     for n in (128, 563, 1125):
         k2_shifts(torch, fa, gen, n, 16)
 
-    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err, stft_err)]
+    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err, stft_err, tp2_err)]
     rows += time_backward(torch, F, fa, gen, clock_hz)
     rows.append(int8_kernel_row(torch))
     return rows
 
 
 def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: float,
-                 stft_err: float) -> dict:
+                 stft_err: float, tp2_err: float) -> dict:
     """K1 at the generation shape (B*H = 16: CFG-doubled batch 2 x 8 heads,
     N = 1125, D = 16, bf16), at N = 4500 (a 2-minute window), at the
-    serving batch (B*H = SERVE_BH at N = 1125) and at the STFT UNet's level 1
-    (N = STFT_N), both causal values, by device time beside the CUDA-event
-    time of back-to-back calls, its plain version and SDPA's forward. The
-    record row is the generation shape's, non-causal; its "serving_shape"
-    and "stft_shape" entries hold those shapes'."""
+    serving batch (B*H = SERVE_BH at N = 1125), at the STFT UNet's level 1
+    (N = STFT_N) and at a tp=2 rank's generation heads (B*H = TP2_GEN_BH),
+    both causal values, by device time beside the CUDA-event time of
+    back-to-back calls, its plain version and SDPA's forward. The record row
+    is the generation shape's, non-causal; its "serving_shape",
+    "stft_shape" and "tp2_shape" entries hold those shapes'."""
     def sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     row = None
     shapes = {}
-    for bh, n in ((16, 1125), (16, 4500), (SERVE_BH, 1125), (16, STFT_N)):
+    for bh, n in ((16, 1125), (16, 4500), (SERVE_BH, 1125), (16, STFT_N), (TP2_GEN_BH, 1125)):
         d = 16
         q, k, v = qkv(bh, n, d, torch.bfloat16)
         for causal in (False, True):
@@ -630,10 +659,13 @@ def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: floa
                 f"{bound_ms:.6f} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), exp bound "
                 f"{ex_ms:.6f} ({bh * pairs / 1e6:.3f} M ex2); back-to-back calls by CUDA "
                 f"events {event_ms:.5f} (K1) and {library_event_ms:.5f} (sdpa) ms")
-            if (bh, n, causal) in ((SERVE_BH, 1125, False), (16, STFT_N, False)):
-                key = "serving_shape" if bh == SERVE_BH else "stft_shape"
+            extra = {(SERVE_BH, 1125): ("serving_shape", serve_err),
+                     (16, STFT_N): ("stft_shape", stft_err),
+                     (TP2_GEN_BH, 1125): ("tp2_shape", tp2_err)}
+            if (bh, n) in extra and not causal:
+                key, shape_err = extra[(bh, n)]
                 shapes[key] = {"bh": bh, "n": n, "d": d, "ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": serve_err if bh == SERVE_BH else stft_err,
+                               "max_abs_err": shape_err,
                                "bound_ms": bound_ms, "exp_bound_ms": ex_ms,
                                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                                "library_ms": library_ms}
@@ -797,13 +829,14 @@ def int8_kernel_row(torch) -> dict:
 
 def time_backward(torch, F, fa, gen, clock_hz: float) -> list:
     """K2 and K3 at the train step's shape (B*H = 32, N = 1125, D = 16,
-    bf16, both causal values), each checked once more, by device time
-    beside the CUDA-event time of back-to-back calls, the plain backward
-    (both gradients) and SDPA's backward (all three gradients together).
-    The record rows are the non-causal ones."""
-    bh, n, d = 32, 1125, 16
+    bf16, both causal values) and at a tp=2 rank's (B*H = TP2_TRAIN_BH),
+    each checked once more, by device time beside the CUDA-event time of
+    back-to-back calls, the plain backward (both gradients) and SDPA's
+    backward (all three gradients together). The record rows are the
+    non-causal ones at B*H 32, with the tp=2 rank's in "tp2_shape"."""
+    n, d = 1125, 16
     rows = {}
-    for causal in (False, True):
+    for bh, causal in ((32, False), (32, True), (TP2_TRAIN_BH, False), (TP2_TRAIN_BH, True)):
         q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, bh, n, d,
                                                 torch.bfloat16, causal)
         errs = check_bwd(torch, fa, gen, bh, n, d, "bfloat16", torch.bfloat16, causal)
@@ -843,7 +876,13 @@ def time_backward(torch, F, fa, gen, clock_hz: float) -> list:
                 f"{sdpa:.5f}; bound {bound:.6f} ({fl / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), "
                 f"exp bound {ex_ms:.6f}; back-to-back calls by CUDA events {event_ms:.5f} "
                 f"(kernel) and {sdpa_event:.5f} (sdpa backward) ms")
-            if not causal:
+            if not causal and bh == TP2_TRAIN_BH:
+                rows[name]["tp2_shape"] = {
+                    "bh": bh, "n": n, "d": d, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bound, "exp_bound_ms": ex_ms,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": sdpa}
+            elif not causal:
                 rows[name] = {
                     "name": name,
                     "route": "cuda",
@@ -1262,14 +1301,7 @@ def worst_grad_leaf(model, refs):
     """(largest share of its bar, leaf name) of `model`'s gradient leaves
     against `refs`: each leaf within 5e-3 * max|ref| of the leaf, that
     scale floored at GRAD_LEAF_FLOOR of the largest leaf's."""
-    floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
-    worst, worst_name = 0.0, ""
-    for (name, p), ref in zip(model.named_parameters(), refs):
-        bar = 5e-3 * max(ref.abs().max().item(), floor)
-        ratio = (p.grad.cpu() - ref.cpu()).abs().max().item() / bar
-        if ratio >= worst:
-            worst, worst_name = ratio, name
-    return worst, worst_name
+    return worst_leaf([(name, p.grad) for name, p in model.named_parameters()], refs)
 
 
 def scratch_dir():
@@ -1372,7 +1404,8 @@ def small_train_compare(torch, cfg, tag: str, coins, prepare=None) -> None:
 
 def phase_main(torch) -> tuple:
     """Returns the K1 launches of the two counted requests, the Jen1, the
-    two requests' audio and the device kernels of the profiled request."""
+    two requests' audio, the device kernels of the profiled request and the
+    two requests' walls."""
     import numpy as np
 
     from jen1_tpu_torch.api.generation import Jen1
@@ -1394,8 +1427,7 @@ def phase_main(torch) -> tuple:
 
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
-    launches = []
-    outs = []
+    launches, outs, walls = [], [], []
     for prompt, seed in SLICE_PROMPTS:
         before = fa.LAUNCHES
         torch.cuda.synchronize()
@@ -1406,6 +1438,7 @@ def phase_main(torch) -> tuple:
         wall = time.perf_counter() - t0
         launches.append(fa.LAUNCHES - before)
         outs.append(out)
+        walls.append(round(wall, 4))
         phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
         log(f"[main] request seed={seed}: wall {wall:.4f} s; phases (s): {phases}; "
             f"flash launches {launches[-1]}; shape {out.shape}; "
@@ -1431,7 +1464,7 @@ def phase_main(torch) -> tuple:
                              lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
                                                    seconds=SLICE_SECONDS))
     log_kernel_time(by_name, "profile", ("flash_fwd_mma",), "K1", "the profiled request")
-    return total, jen1, outs, sum(n for n, _ in by_name.values())
+    return total, jen1, outs, sum(n for n, _ in by_name.values()), walls
 
 
 def sync_wall(torch, fn):
@@ -3630,6 +3663,313 @@ def phase_eval(torch, main_outs, snake_outs) -> None:
         raise SystemExit("chip_smoke: eval: the card's report disagrees with the CPU's")
 
 
+def nccl_world1():
+    """An in-process NCCL process group of one rank on cuda:0 (a HashStore,
+    no port) and its (1, 1, 1) mesh; destroy with
+    torch.distributed.destroy_process_group()."""
+    import torch.distributed as dist
+
+    from jen1_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed("cuda", store=dist.HashStore(), rank=0, world_size=1)
+    return make_mesh()
+
+
+def phase_small_mesh(torch) -> None:
+    """The mesh at tiny widths. `torchrun --standalone --nproc_per_node 1 -m
+    jen1_tpu_torch.train.train --distributed --fsdp` for SMALL_MESH_STEPS
+    steps over a latents directory written here (tiny_train_config, L = 520,
+    so K1-K3 run): NCCL, exit 0, one checkpoint, which loads into a
+    single-process trainer on the card and gathers back bit for bit. Then a
+    tiny Jen1 with `mesh = make_mesh()` (world 1, NCCL, in this process)
+    against the same Jen1 without a mesh: same seed, on the card, at
+    tests/test_api.py's bar (1e-4 / 1e-5)."""
+    import json
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from jen1_tpu_torch.train.train import build_trainer
+
+    cfg = tiny_train_config()
+    cfg.eval_interval = SMALL_MESH_STEPS
+    mc = cfg.model_config
+    with scratch_dir() as d:
+        d = Path(d)
+        cfg.to_json(str(d / "cfg.json"))
+        (d / "latents").mkdir()
+        g = np.random.default_rng(0)
+        for i in range(8):
+            np.save(d / "latents" / f"clip{i}.npy",
+                    g.standard_normal((520, mc.in_channels)).astype(np.float32))
+            (d / "latents" / f"clip{i}.json").write_text(json.dumps({"prompt": f"song {i}"}))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "jen1_tpu_torch.train.train", "--distributed",
+               "--fsdp", "--config", str(d / "cfg.json"), "--latents-dir", str(d / "latents"),
+               "--max-steps", str(SMALL_MESH_STEPS), "--save-dir", str(d / "ckpt"),
+               "--log-dir", str(d / "logs")]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        log(f"[small-mesh] torchrun --nproc_per_node 1 train --distributed --fsdp: exit "
+            f"{proc.returncode} in {wall:.2f} s")
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit("chip_smoke: torchrun train --distributed failed")
+        log_text = (d / "logs" / "train.log").read_text()
+        ckpt = CheckpointManager(str(d / "ckpt"))
+        steps = ckpt.all_steps()
+        saved, meta = ckpt.restore(map_location="cuda")
+        trainer = build_trainer(cfg, device="cuda")
+        state = trainer.load_state_dict(saved)
+        back = trainer.state_dict(state)
+        exact = all(torch.equal(back[k].cpu(), saved[k].cpu()) for k in saved)
+        records = [json.loads(x) for x in (d / "logs" / "metrics.jsonl").read_text().splitlines()]
+    mesh_line = next((x for x in log_text.splitlines() if "mesh:" in x), "")
+    losses = [r["loss/train"] for r in records if "loss/train" in r]
+    log(f"[small-mesh] {mesh_line.split(chr(9))[-1]}; losses {losses}; checkpoint steps "
+        f"{steps}, val loss {meta['loss']:.6f}; loaded into a single-process trainer and "
+        f"gathered back bit for bit: {exact} ({len(saved)} tensors)")
+    if "nccl" not in mesh_line or steps != [SMALL_MESH_STEPS] or not exact \
+            or len(losses) != SMALL_MESH_STEPS or not np.all(np.isfinite(losses)):
+        raise SystemExit("chip_smoke: the torchrun train run's checkpoint is not what it should be")
+    del trainer, state, saved, back
+
+    _, card = tiny_pair(torch)
+    kw = dict(seed=6, steps=4, batch_size=2, seconds=13)
+    prompts = ["a mesh of one", "second lane"]
+    ref = card.generate(prompts, **kw)
+    card.mesh = nccl_world1()
+    try:
+        before = launch_counts()[0]
+        out = card.generate(prompts, **kw)
+        k1 = launch_counts()[0] - before
+    finally:
+        card.mesh = None
+        dist.destroy_process_group()
+    err = float(np.abs(out - ref).max())
+    ok = np.allclose(out, ref, rtol=1e-4, atol=1e-5)
+    log(f"[small-mesh] tiny Jen1 with make_mesh() (NCCL, world 1) against no mesh: shape "
+        f"{out.shape}, max|diff| {err:.3e} (bar 1e-4 / 1e-5) {'ok' if ok else 'FAIL'}; K1 "
+        f"launches {k1}")
+    if not ok or k1 == 0:
+        raise SystemExit("chip_smoke: the tiny Jen1 over a mesh differs from the one without")
+
+
+def phase_mesh(torch, jen1, main_outs, main_walls) -> tuple:
+    """The mesh at full width, in an in-process NCCL group of one rank
+    (destroyed at the end). Generation: phase main's Jen1 with `mesh =
+    make_mesh()` runs one warm-up and two timed 100-step 30 s B=1 requests
+    with main's prompts and seeds, in turns with the same requests without
+    the mesh (the group up): walls of both beside main's, max|diff| to
+    main's audio at the generate bar (2e-2 / 2e-3), K1 200 per request, all
+    on the tensor-core route; a profiled 10-step mesh request; the
+    all-gather's wall per call. Training: a trainer with fsdp=True over the
+    mesh (fully_shard wraps every parameter at dp = 1) at phase train's
+    shape (longform_config(), B=3, 30 s, GDM, fused AdamW) beside a trainer
+    without one: MESH_TRAIN_WARMUP + MESH_TRAIN_STEPS steps each, every step
+    from the plain trainer's state (loaded into the mesh trainer), batch and
+    draws: losses and the gradient norm AdamW clips with at rtol 2e-3,
+    every gradient leaf at the train bars, and after the update the whole
+    gathered state (`worst_state_leaf`: the parameters' and the EMA's
+    change, the moments, the counters) of the mesh trainer against the
+    plain one's; step walls of both, peak memory, K1/K2/K3 4/4/4 per mesh
+    step on the tensor-core route, and the walls of gathering and saving the
+    mesh trainer's checkpoint. Each step starts from one state so that a
+    1-ulp difference (bf16 compute) cannot grow past the bars over the
+    steps. Returns (K1 of the requests, K1/K2/K3 of the mesh trainer's
+    steps)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
+    from jen1_tpu_torch.config import ParallelConfig
+    from jen1_tpu_torch.parallel.mesh import to_local
+    from jen1_tpu_torch.train.train import build_trainer
+    from jen1_tpu_torch.train.trainer import step_generator
+
+    mesh = nccl_world1()
+    try:
+        jen1.mesh = mesh
+        t0 = time.perf_counter()
+        jen1.generate("warm-up", seed=1, steps=SLICE_STEPS, seconds=SLICE_SECONDS)
+        log(f"[mesh] Jen1.mesh = make_mesh() {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+            f"({dist.get_backend()}); warm-up request {time.perf_counter() - t0:.3f} s")
+        reset_launches()
+        walls, k1 = {"mesh": [], "no mesh": []}, []
+        # in turns: no mesh, mesh, mesh, no mesh
+        for use_mesh, i in ((False, 0), (True, 0), (True, 1), (False, 1)):
+            (prompt, seed), ref = SLICE_PROMPTS[i], main_outs[i]
+            jen1.mesh = mesh if use_mesh else None
+            before = launch_counts()[0]
+            out, wall = sync_wall(torch, lambda: jen1.generate(
+                prompt, seed=seed, steps=SLICE_STEPS, batch_size=1, seconds=SLICE_SECONDS))
+            walls["mesh" if use_mesh else "no mesh"].append(round(wall, 4))
+            k1.append(launch_counts()[0] - before)
+            close = np.allclose(out, ref, rtol=2e-2, atol=2e-3)
+            log(f"[mesh] request seed={seed}, {'Jen1.mesh' if use_mesh else 'no mesh'}: wall "
+                f"{wall:.4f} s; max|diff| to main's audio {float(np.abs(out - ref).max()):.3e} "
+                f"(bar 2e-2 / 2e-3) {'ok' if close else 'FAIL'}; K1 launches {k1[-1]}")
+            if not close or out.shape != ref.shape:
+                raise SystemExit("chip_smoke: a request with the group up differs from main's")
+        gen_k1, gen_mma = sum(k1), mma_counts()[0]
+        log(f"[mesh] request walls: Jen1.mesh {walls['mesh']}, no mesh {walls['no mesh']}, "
+            f"main's {main_walls} s")
+        if k1 != [2 * SLICE_STEPS] * 4 or gen_mma != gen_k1:
+            raise SystemExit(f"chip_smoke: K1 launches per request {k1} ({gen_mma} "
+                             f"tensor-core), want {2 * SLICE_STEPS} each")
+        jen1.mesh = mesh
+        prompt, seed = SLICE_PROMPTS[0]
+        by_name = profile_window(torch, "mesh-profile", f"{PROFILE_STEPS}-step Jen1.mesh request",
+                                 lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                                                       seconds=SLICE_SECONDS))
+        log_kernel_time(by_name, "mesh-profile", ("nccl",), "NCCL", "the profiled request")
+        jen1.mesh = None
+
+        cfg = full_train_config()
+        cfg.parallel_config.fsdp = True
+        frames = int(TRAIN_SECONDS * 150)
+        t0 = time.perf_counter()
+        plain = build_trainer(dataclasses.replace(cfg, parallel_config=ParallelConfig()),
+                              device="cuda")
+        sharded = build_trainer(cfg, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        n_dtensor = sum(type(p).__name__ == "DTensor" for p in sharded.params)
+        log(f"[mesh] two trainers built in {time.perf_counter() - t0:.2f} s; fsdp wrapped "
+            f"{n_dtensor} of {len(sharded.params)} parameters as DTensors; flatten off "
+            f"{sharded.optimizer is None or not sharded.optimizer.flatten}")
+        latents = np.random.default_rng(TRAIN_SEED).standard_normal(
+            (TRAIN_BATCH, frames, cfg.model_config.in_channels)).astype(np.float32)
+        batch = plain.prepare_batch(latents, [{"prompt": p} for p in TRAIN_PROMPTS])
+        states = {"plain": plain.init_state(), "mesh": sharded.init_state()}
+        walls = {"plain": [], "mesh": []}
+        per_step, mma_steps, peaks = [], [], []
+        for i in range(MESH_TRAIN_WARMUP + MESH_TRAIN_STEPS):
+            timed = i >= MESH_TRAIN_WARMUP
+            if i == MESH_TRAIN_WARMUP:
+                reset_launches()
+            metrics = {}
+            start = plain.state_dict(states["plain"])
+            states["mesh"] = sharded.load_state_dict(start)
+            # on the host, so that the peaks read below are the steps' own
+            start = {k: v.to("cpu", copy=True) for k, v in start.items()
+                     if k.startswith(("params/", "ema_params/"))}
+            torch.cuda.reset_peak_memory_stats()
+            for name, tr in (("plain", plain), ("mesh", sharded)):
+                before, mma_before = launch_counts(), mma_counts()
+                t0 = time.perf_counter()
+                states[name], m = tr.train_step(states[name], batch,
+                                                step_generator("cuda", TRAIN_SEED, i),
+                                                np.random.default_rng((TRAIN_SEED, i)))
+                metrics[name] = {k: float(v) for k, v in m.items()}  # host reads end the step
+                if timed:
+                    walls[name].append(time.perf_counter() - t0)
+                if name == "mesh" and timed:
+                    per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+                    mma_steps.append(tuple(a - b for a, b in zip(mma_counts(), mma_before)))
+            if timed:
+                peaks.append(torch.cuda.max_memory_allocated())
+            losses_ok = all(np.isclose(metrics["mesh"][k], metrics["plain"][k], rtol=2e-3,
+                                       atol=0) for k in metrics["plain"]
+                            if k.startswith("loss") or k == "grad_norm")
+            worst, worst_name = worst_leaf(
+                [(n, to_local(p.grad)) for n, p in sharded.model.named_parameters()],
+                [p.grad for p in plain.params])
+            worst_state, worst_state_name = worst_state_leaf(
+                sharded.state_dict(states["mesh"]), plain.state_dict(states["plain"]), start)
+            del start
+            log(f"[mesh] train step {i}{'' if timed else ' (warm-up)'}: loss/train mesh "
+                f"{metrics['mesh']['loss/train']:.6f} plain {metrics['plain']['loss/train']:.6f}"
+                f", grad_norm mesh {metrics['mesh']['grad_norm']:.6f} plain "
+                f"{metrics['plain']['grad_norm']:.6f}; worst gradient leaf {worst_name} at "
+                f"{worst:.4f} of its bar; worst state leaf after the update "
+                f"{worst_state_name} at {worst_state:.4f} of its bar")
+            if not losses_ok or worst > 1.0 or worst_state > 1.0:
+                raise SystemExit("chip_smoke: the mesh train step differs from the plain one")
+        peak = max(peaks)
+        log(f"[mesh] {MESH_TRAIN_STEPS} timed steps: mesh walls {[round(w, 4) for w in walls['mesh']]}"
+            f" s, plain walls {[round(w, 4) for w in walls['plain']]} s; peak device memory "
+            f"with both trainers {peak} "
+            f"bytes; K1/K2/K3 per mesh step {per_step}, tensor-core {mma_steps}")
+        if any(s != (TRAIN_LAUNCHES,) * 3 for s in per_step) or mma_steps != per_step:
+            raise SystemExit(f"chip_smoke: mesh train step launches {per_step} ({mma_steps} "
+                             f"tensor-core), want {TRAIN_LAUNCHES} each")
+        with scratch_dir() as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flat = sharded.state_dict(states["mesh"])
+            torch.cuda.synchronize()
+            gather_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            CheckpointManager(d).save(states["mesh"].step, flat, loss=0.0)
+            save_wall = time.perf_counter() - t0
+            on_disk = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        log(f"[mesh] gathered checkpoint: {len(flat)} tensors gathered in {gather_wall:.3f} s, "
+            f"saved in {save_wall:.3f} s, {on_disk} bytes on disk")
+        train = tuple(sum(s[j] for s in per_step) for j in range(3))
+        del plain, sharded, states, flat, batch
+    finally:
+        jen1.mesh = None
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gen_k1, train
+
+
+def worst_state_leaf(got, ref, start):
+    """The worst leaf of the train state `got` against `ref`, two flat
+    `state_dict`s one update on from `start` (the parameters and the EMA
+    before it), as (ratio to its bar, name). The parameters and the EMA are
+    held by their change over the update, the moments as they are, each at
+    the gradient-leaf bar of its group (params, ema_params, opt/<field>);
+    an integer counter that differs is infinitely far."""
+    import torch
+
+    groups: dict = {}
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            if not torch.equal(got[k].cpu(), r.cpu()):
+                return float("inf"), k
+            continue
+        g = got[k].to(r.device)
+        if k in start:
+            s = start[k].to(r.device)
+            r, g = r - s, g - s
+        key = "/".join(k.split("/")[:2]) if k.startswith("opt/") else k.split("/")[0]
+        groups.setdefault(key, []).append(
+            (k, (g.float() - r.float()).abs().max(), r.abs().max().float()))
+    worst, worst_name = 0.0, ""
+    for leaves in groups.values():
+        scale = torch.stack([m for _, _, m in leaves])
+        bar = 5e-3 * torch.clamp(scale, min=GRAD_LEAF_FLOOR * float(scale.max()))
+        # 0 / 0 is a leaf that is equal where its whole group is zero
+        ratios = torch.nan_to_num(torch.stack([d for _, d, _ in leaves]) / bar, nan=0.0,
+                                  posinf=float("inf")).cpu()
+        i = int(ratios.argmax())
+        if float(ratios[i]) >= worst:
+            worst, worst_name = float(ratios[i]), leaves[i][0]
+    return worst, worst_name
+
+
+def worst_leaf(named, refs):
+    """worst_grad_leaf over (name, gradient) pairs, on any devices."""
+    floor = GRAD_LEAF_FLOOR * max(r.abs().max().item() for r in refs)
+    worst, worst_name = 0.0, ""
+    for (name, g), ref in zip(named, refs):
+        bar = 5e-3 * max(ref.abs().max().item(), floor)
+        ratio = (g.float().cpu() - ref.float().cpu()).abs().max().item() / bar
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
 def main() -> int:
     import torch
 
@@ -3654,19 +3994,22 @@ def main() -> int:
     phase_small_lora(torch)
     phase_small_composer(torch)
     phase_small_features(torch)
-    k1_generation, jen1, main_outs, main_kernels = phase_main(torch)
+    phase_small_mesh(torch)
+    k1_generation, jen1, main_outs, main_kernels, main_walls = phase_main(torch)
     k1_generation += phase_tasks(torch, jen1)
     k1_generation += phase_long(torch, jen1)
     k1_generation += phase_bf16_weights(torch, jen1)
     k1_generation += phase_reuse(torch, jen1)
     k1_generation += phase_serve(torch, jen1)
+    k1_mesh, mesh_train = phase_mesh(torch, jen1, main_outs, main_walls)
+    k1_generation += k1_mesh
     del jen1
     gc.collect()
     torch.cuda.empty_cache()
     k4 = phase_flagship(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    k1_train, k2, k3 = phase_train(torch)
+    k1_train, k2, k3 = (a + b for a, b in zip(phase_train(torch), mesh_train))
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (phase_lora, phase_wav_train):

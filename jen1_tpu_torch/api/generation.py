@@ -43,6 +43,17 @@ Composer. `generate_tracks` generates the n_tracks channel groups of a
 multi-track config (`config.composer_config`), given any subset of tracks
 as waveforms. The model runs on `device` ("cuda" by default; "cpu" only
 when asked).
+
+Mesh. `jen1.mesh = make_mesh(dp=N, sp=S)` (parallel/mesh.py, one process
+per rank, each with its Jen1 on its device) shards `generate()`'s batch over
+dp and the latent's length over sp (jen1_tpu/api/generation.py:549-571):
+every rank draws the whole batch's initial and per-step noise from the
+request's generator and runs the sampler's arithmetic on it; the UNet runs
+sequence-parallel (parallel/sp.py) on the rank's rows and frames of x_t and
+of `input_concat_cond` and its output is all-gathered; the rank decodes its
+rows and the audio is all-gathered, so every rank returns the whole batch,
+the single-process result. The batch must divide by dp, and the latent's
+length by sp times the UNet's factor product.
 """
 
 from __future__ import annotations
@@ -73,7 +84,10 @@ from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
 from jen1_tpu_torch.models.unet import unet_from_model_config
 from jen1_tpu_torch.ops.conv import fp32_precision
+from jen1_tpu_torch.ops.embeddings import rand_bool
 from jen1_tpu_torch.ops.initializers import init_module
+from jen1_tpu_torch.parallel import sp as seq
+from jen1_tpu_torch.parallel.mesh import axis_sizes, gather_rows
 
 TASKS = ("text_guided", "music_inpaint", "music_cont")
 REFERENCE_SUFFIXES = (".pth", ".pt", ".bin")
@@ -220,6 +234,8 @@ class Jen1:
         # walls: prep / encode / conditioner / assemble / sampler / decode /
         # fetch.
         self.last_timings: Dict[str, float] = {}
+        # a DeviceMesh (parallel/mesh.py) whose dp and sp axes shard generate()
+        self.mesh = None
 
     @torch.no_grad()
     def _load_weights(self, ckpt_path: str, is_reference: bool, use_ema_params: bool) -> None:
@@ -282,6 +298,36 @@ class Jen1:
         if kw.get("return_encoder_cache"):
             return out[0].float(), out[1]
         return out.float()
+
+    def _dp_rows(self, batch_size: int) -> slice:
+        """This rank's rows of a generate() batch under `self.mesh`."""
+        dp = axis_sizes(self.mesh)["dp"]
+        if batch_size % dp:
+            raise ValueError(f"batch_size {batch_size} not divisible by dp {dp}")
+        per = batch_size // dp
+        rank = self.mesh.get_local_rank("dp")
+        return slice(rank * per, (rank + 1) * per)
+
+    def _mesh_model_fn(self, x, t, **kw):
+        """`_model_fn` on this rank's rows (dp) and frames (sp) of the
+        sampler's batch, the output all-gathered. CFG-dropout bits the UNet
+        would draw are drawn for the whole batch first, as one process draws
+        them; an encoder cache holds this rank's part and passes as it is."""
+        rows = self._dp_rows(x.shape[0])
+        if kw.get("embedding_mask_proba", 0.0) > 0.0 and kw.get("embedding_mask_bits") is None:
+            kw["embedding_mask_bits"] = rand_bool(kw.get("generator"), (x.shape[0], 1, 1),
+                                                  kw["embedding_mask_proba"], x.device)
+        for key in ("embedding", "embedding_mask", "features", "embedding_mask_bits"):
+            if kw.get(key) is not None:
+                kw[key] = kw[key][rows]
+        with seq.sequence_parallel(self.mesh) as sp:
+            frames = slice(None) if sp is None else seq.length_slice(x.shape[1], sp)
+            if kw.get("channels_list") is not None:
+                kw["channels_list"] = [c[rows, frames] for c in kw["channels_list"]]
+            out = self._model_fn(x[rows, frames], t[rows], **kw)
+            first = seq.gather_length(out[0] if kw.get("return_encoder_cache") else out)
+        first = gather_rows(first, self.mesh)
+        return (first, out[1]) if kw.get("return_encoder_cache") else first
 
     def _encoder(self, encode_mode: str):
         """The codec encoder generate() uses (jen1_tpu/api/generation.py:490-495):
@@ -479,18 +525,21 @@ class Jen1:
         # the unmasked latent starts the sampler, as in the JAX package
         init_data = None if no_init else init_emb
         shape = (batch_size, latent_len, init_emb.shape[2])
+        model_fn, rows = self._model_fn, None
+        if self.mesh is not None:
+            model_fn, rows = self._mesh_model_fn, self._dp_rows(batch_size)
         mark("assemble")
 
         with fp32_precision():
             if use_gdm:
                 latents = self._get_gdm(steps).sample(
-                    self._model_fn, shape, conditioning, generator, device=dev,
+                    model_fn, shape, conditioning, generator, device=dev,
                     causal=causal, mode=sampler_mode, init_data=init_data,
                     encoder_reuse=int(encoder_reuse),
                 )
             else:
                 latents = self.diffusion.p_sample_loop(
-                    self._model_fn, shape, conditioning, generator, device=dev,
+                    model_fn, shape, conditioning, generator, device=dev,
                     step=steps, causal=causal, init_data=init_data,
                 )
             mark("sampler")
@@ -500,11 +549,15 @@ class Jen1:
                 out = latents.cpu().numpy().transpose(0, 2, 1)  # (B, D, F)
                 mark("fetch")
                 return out
+            if rows is not None:
+                latents = latents[rows]
             if decode_mode == "whole":
                 audio = self.codec.decode_latent(latents)
             else:
                 audio = self.codec.decode_latent_chunked(
                     latents, dtype=torch.bfloat16 if decode_mode == "chunked_bf16" else None)
+            if rows is not None:
+                audio = gather_rows(audio, self.mesh)
         if output_dtype == "int16":
             audio = (audio.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
         mark("decode", sync=not on_device)

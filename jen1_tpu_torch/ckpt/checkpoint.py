@@ -20,6 +20,10 @@ Retention follows the JAX manager's Orbax options: with `keep_best` the
 order), else the `max_to_keep` most recent (LatestN); `best_step` is the
 lowest-loss step, or the latest without `keep_best`. A JAX (Orbax) run
 directory is not readable here.
+
+Under torch.distributed every rank calls `save` with the same (gathered,
+full) state: rank 0 writes and a barrier holds the others until the step
+is in place. Every rank reads.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
@@ -126,7 +131,18 @@ class CheckpointManager:
              learning_rate: Optional[float] = None,
              extra_meta: Optional[Dict[str, Any]] = None) -> None:
         """Write `state` (a flat {name: tensor} dict) as step `step` with its
-        loss and metadata, then drop the steps that retention lets go."""
+        loss and metadata, then drop the steps that retention lets go. Under
+        torch.distributed every rank calls this and rank 0 writes."""
+        distributed = dist.is_available() and dist.is_initialized()
+        try:
+            if not distributed or dist.get_rank() == 0:
+                self._write(step, state, loss, learning_rate, extra_meta)
+        finally:
+            if distributed:
+                dist.barrier()
+
+    def _write(self, step: int, state: Dict[str, torch.Tensor], loss: float,
+               learning_rate: Optional[float], extra_meta: Optional[Dict[str, Any]]) -> None:
         final = self._step_dir(step)
         if os.path.exists(final):
             raise ValueError(f"checkpoint step {step} already exists in {self.directory}")

@@ -176,8 +176,10 @@ class ConditionerConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device-mesh layout (jen1_tpu/config.py:235-252). The port runs on one
-    device; the trainer CLI refuses any other layout."""
+    """Device-mesh layout (jen1_tpu/config.py:235-252), built by
+    parallel/mesh.py over a torch.distributed process group: dp (-1: what
+    tp * sp leave of the world), sp (the latent's length, parallel/sp.py),
+    tp, and fsdp over dp."""
 
     dp: int = -1
     tp: int = 1
@@ -260,14 +262,6 @@ class Config:
                 node = node[p]
             node[parts[-1]] = value
         return Config.from_dict(d)
-
-
-# ROADMAP Queue 1 items, by title, that port what the port refuses today
-ROADMAP_MESH = "ROADMAP Queue 1, 'parallel/mesh.py on torch.distributed'"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to jen1_tpu_torch yet ({item})")
 
 
 def _dataclass_from_dict(cls, d):

@@ -4,7 +4,9 @@
 alpha(t) = cos(t pi/2), sigma(t) = sin(t pi/2); the deterministic v-space
 sampler walks linspace(1 -> 0, step + 1) as a Python loop. The training
 loss (vdm.py:104-139) draws t ~ U[0, 1) per example; its times, noise and
-CFG dropout bits can be handed in instead.
+CFG dropout bits can be handed in instead. With `dropout_during_sampling`
+the sampler's UNet calls keep the training CFG dropout, each step drawing
+its bits from the request's generator (vdm.py:48, 179).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class VDM:
         scale_cfg: bool = False,
         uniform_noise_compat: bool = False,
         xt_target_compat: bool = False,
+        dropout_during_sampling: bool = False,
     ):
         if loss_type not in {"l1", "l2"}:
             raise ValueError(f"loss_type must be 'l1' or 'l2', got {loss_type!r}")
@@ -57,6 +60,7 @@ class VDM:
         self.scale_cfg = bool(scale_cfg)
         self.uniform_noise_compat = uniform_noise_compat
         self.xt_target_compat = xt_target_compat
+        self.dropout_during_sampling = bool(dropout_during_sampling)
 
     def _call_model(self, model_fn, x, t, conditioning, *, causal: bool, **dropout):
         """The denoiser with the CFG plumbing; `dropout` holds the training
@@ -136,10 +140,13 @@ class VDM:
         batch = shape[0]
         audio = with_init_data(initial_noise(shape, generator, device), init_data)
         steps = np.linspace(1.0, 0.0, step + 1, dtype=np.float32)
+        dropout = {}
+        if self.dropout_during_sampling:
+            dropout = dict(embedding_mask_proba=self.cfg_dropout_proba, generator=generator)
         for t, t_next in zip(steps[:-1], steps[1:]):
             time_cond = torch.full((batch,), float(t), dtype=torch.float32, device=device)
             v_pred = self._call_model(
-                model_fn, audio, time_cond, conditioning, causal=causal
+                model_fn, audio, time_cond, conditioning, causal=causal, **dropout
             ).float()
             alpha, sigma = (float(a) for a in alpha_sigma(t))
             alpha_next, sigma_next = (float(a) for a in alpha_sigma(t_next))

@@ -6,7 +6,9 @@ Submodules carry the flax names of the JAX package (`block0`,
 parameters by path. Only the block configurations the UNet builds are
 ported: pre-downsample blocks with skips and post-upsample blocks that
 consume them. `use_snake` swaps every conv block's SiLU for Snake
-(`ops/snake.py`, submodule `snake`).
+(`ops/snake.py`, submodule `snake`). Under sequence parallelism
+(parallel/sp.py) Transformer1d gathers the length and keeps its frames
+after, and no skip is cropped.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from jen1_tpu_torch.ops.conv import Downsample1d, OmniConv1d, Upsample1d
 from jen1_tpu_torch.ops.linear import Linear
 from jen1_tpu_torch.ops.norm import GroupNorm
 from jen1_tpu_torch.ops.snake import Snake1d
+from jen1_tpu_torch.parallel import sp as seq
 
 
 class ConvBlock1d(nn.Module):
@@ -231,6 +234,13 @@ class Transformer1d(nn.Module):
         self.conv_out = None if tie_projections else OmniConv1d(channels, channels, 1)
 
     def forward(self, x, context=None, context_mask=None, causal: bool = False):
+        if seq.active() is not None:
+            # the whole length on every rank (attention spans it), its own
+            # frames after
+            whole = seq.gather_length(x)
+            with seq.suspended():
+                out = self.forward(whole, context, context_mask, causal)
+            return seq.own_frames(out)
         x = self.conv_in(self.group_norm(x), causal=causal)
         for i in range(self.num_layers):
             x = getattr(self, f"block{i}")(
@@ -243,6 +253,9 @@ class Transformer1d(nn.Module):
 def _crop_to_common_length(x: torch.Tensor, skip: torch.Tensor):
     """Centre-crop the longer of (x, skip) along axis 1."""
     lx, ls = x.shape[1], skip.shape[1]
+    if lx != ls and seq.active() is not None:
+        raise ValueError("a centre crop of a length-sharded latent; under sp the local "
+                         "length must divide by the factor product")
     if lx > ls:
         start = (lx - ls) // 2
         x = x[:, start : start + ls]

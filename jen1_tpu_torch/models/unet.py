@@ -14,6 +14,7 @@ back to the input's length.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -33,6 +34,7 @@ from jen1_tpu_torch.models.blocks import (
 from jen1_tpu_torch.ops.embeddings import FixedEmbedding, TimePositionalEmbedding, rand_bool
 from jen1_tpu_torch.ops.linear import Linear
 from jen1_tpu_torch.ops.stft import STFT
+from jen1_tpu_torch.parallel import sp as seq
 
 
 # (pre-bottleneck feature, per-level skips of levels 1..n): a plain tuple of
@@ -86,6 +88,8 @@ class UNet1d(nn.Module):
         self.remat = remat
         assert len(factors) == n and len(num_blocks) == n and len(attentions) >= n
         self.num_layers = n
+        # the length the down stack divides exactly (sequence parallelism)
+        self.length_multiple = patch_size * math.prod(factors[:n])
         self.use_context_time = use_context_time
         self.context_features = context_features
         # STFT mode (jen1_tpu/models/unet.py:85-93): C waveform channels
@@ -206,6 +210,11 @@ class UNet1d(nn.Module):
         waveform (B, T, C) and so is the output; the cache holds STFT-domain
         features."""
         wave_len, x_dtype = x.shape[1], x.dtype
+        if seq.active() is not None:
+            if self.stft is not None:
+                raise NotImplementedError("sequence parallelism over the STFT-domain UNet "
+                                          "(its STFT spans the whole waveform)")
+            seq.check_length(x.shape[1], self.length_multiple)
         if self.stft is not None:
             if self.use_stft_context and channels_list is not None:
                 channels_list = [self._stft_encode(c) for c in channels_list]

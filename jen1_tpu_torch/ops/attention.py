@@ -6,6 +6,11 @@ self-attention with `use_flash`, N >= flash_min_seq_len and N == M goes to
 plain fp32-logits path below. Cross-attention padding zeroes the masked k/v
 rows, and the k/v input always has its own LayerNorm, even for
 self-attention.
+
+Under tensor parallelism (parallel/mesh.py) to_q and to_kv are
+column-parallel and return this rank's columns: the heads come from the
+local width, and to_kv's local rows are laid out [k_r; v_r], so the chunk
+below splits them.
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ class Attention(nn.Module):
 
         b, n, _ = q.shape
         m_len = k.shape[1]
-        h, d = self.num_heads, self.head_features
+        d = self.head_features
+        h = q.shape[-1] // d  # num_heads, or num_heads / tp under tp
 
         def heads(a, length):
             return a.reshape(b, length, h, d).transpose(1, 2).contiguous()

@@ -7,6 +7,12 @@ transpose to (B, C, L) for `F.conv1d` and back. A stride-1 `OmniConv1d`
 given an int8 kernel (`ops/int8_matmul.py::attach_qweights`) runs
 `conv1d_int8w` instead. `fp32_precision` is the port's counterpart of the
 JAX package's `Precision.HIGHEST` for fp32 products.
+
+Under sequence parallelism (parallel/sp.py) the input is this rank's frames
+of the length: each conv first takes the frames its padding implies from
+its neighbours (`halo`; zeros at the global ends) and then runs unpadded,
+or (the int8 and transposed convs) runs padded over the extended input and
+keeps its own outputs.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from torch import nn
 
 from jen1_tpu_torch.ops.initializers import torch_uniform_
 from jen1_tpu_torch.ops.int8_matmul import conv1d_int8w
+from jen1_tpu_torch.parallel import sp as seq
 
 
 @contextlib.contextmanager
@@ -63,6 +70,11 @@ def conv1d(
     k = weight.shape[-1]
     pad = (k - 1) * dilation
     pads = (pad, 0) if causal else (pad // 2, pad // 2)
+    if seq.active() is not None:
+        # the frames this rank's outputs read: pads[0] before, and after
+        # its last output's window end minus its own length
+        x = seq.halo(x, pads[0], pad + 1 - stride - pads[0])
+        pads = (0, 0)
     xt = F.pad(x.transpose(1, 2), pads)
     y = F.conv1d(
         xt, weight.to(x.dtype), _cast(bias, x.dtype), stride=stride, dilation=dilation
@@ -81,7 +93,12 @@ def conv_transpose1d(
 ) -> torch.Tensor:
     """torch-semantics ConvTranspose1d in channels-last: x (B, L, Cin),
     weight (Cin, Cout, K); out_len = (L-1)*stride - 2*padding + K +
-    output_padding."""
+    output_padding. Under sp (K <= 2 * stride) one frame from each
+    neighbour, and this rank's L * stride outputs."""
+    length = x.shape[1]
+    sharded = seq.active() is not None
+    if sharded:
+        x = seq.halo(x, 1, 1)
     y = F.conv_transpose1d(
         x.transpose(1, 2),
         weight.to(x.dtype),
@@ -90,6 +107,8 @@ def conv_transpose1d(
         padding=padding,
         output_padding=output_padding,
     )
+    if sharded:
+        y = y[:, :, stride:stride + length * stride]
     return y.transpose(1, 2)
 
 
@@ -126,8 +145,13 @@ class OmniConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         if self.stride == 1 and self.kernel8 is not None:
-            return conv1d_int8w(x, self.kernel8, self.scale, self.bias,
-                                dilation=self.dilation, causal=causal)
+            length = x.shape[1]
+            pad = (self.kernel8.shape[0] // x.shape[-1] - 1) * self.dilation
+            left = pad if causal else pad // 2
+            x = seq.halo(x, left, pad - left)  # x itself unless under sp
+            y = conv1d_int8w(x, self.kernel8, self.scale, self.bias,
+                             dilation=self.dilation, causal=causal)
+            return y[:, left:left + length] if seq.active() is not None else y
         return conv1d(
             x, self.weight, self.bias,
             stride=self.stride, dilation=self.dilation, causal=causal,

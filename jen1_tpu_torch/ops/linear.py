@@ -1,7 +1,9 @@
 """Mixed-precision Linear (port of jen1_tpu/ops/linear.py).
 
 The weight is stored fp32 and cast to the activation dtype at use; the
-product accumulates in fp32 (cuBLAS does so for bf16 inputs).
+product accumulates in fp32 (cuBLAS does so for bf16 inputs). A subclass of
+`torch.nn.Linear`, so that DTensor's tensor-parallel styles take it
+(parallel/mesh.py); its own init and forward replace nn.Linear's.
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from torch import nn
 from jen1_tpu_torch.ops.initializers import torch_uniform_
 
 
-class Linear(nn.Module):
+class Linear(nn.Linear):
     """torch.nn.Linear semantics and init; weight (out, in)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True):
-        super().__init__()
+        nn.Module.__init__(self)  # nn.Linear's would allocate and initialise
         self.in_features = in_features
+        self.out_features = features
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 

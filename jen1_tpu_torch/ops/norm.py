@@ -1,11 +1,14 @@
 """Normalisation layers, channels-last, fp32 statistics (port of
-jen1_tpu/ops/norm.py)."""
+jen1_tpu/ops/norm.py). Under sequence parallelism GroupNorm's statistics
+span the whole length (parallel/sp.py::group_norm)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from jen1_tpu_torch.parallel import sp as seq
 
 
 class GroupNorm(nn.Module):
@@ -27,6 +30,9 @@ class GroupNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if seq.active() is not None:
+            return seq.group_norm(x, self.num_groups, self.weight, self.bias,
+                                  self.eps).to(x.dtype)
         y = F.group_norm(x.transpose(1, 2).float(), self.num_groups, self.weight,
                          self.bias, self.eps)
         return y.to(x.dtype).transpose(1, 2)

@@ -68,10 +68,6 @@ class ServiceClosed(RuntimeError):
 
 _REQ_IDS = itertools.count()
 
-# dispatched batches that may wait for a completer before the dispatcher
-# blocks: each holds its audio on the device until it is fetched
-PIPELINE_DEPTH = 2
-
 
 @dataclass
 class _Request:
@@ -121,6 +117,7 @@ class GenerationService:
         sampler_mode: str = "scan",
         default_use_gdm: bool = True,
         output_dtype: str = "float32",
+        pipeline_depth: int = 2,
         n_completers: int = 2,
     ):
         self.jen1 = jen1
@@ -159,8 +156,9 @@ class GenerationService:
         self._device_lock = threading.Lock()
         self._draining = threading.Event()
         self._stop = threading.Event()
-        # at most PIPELINE_DEPTH dispatched batches wait for a completer
-        self._inflight: "queue.Queue" = queue.Queue(maxsize=PIPELINE_DEPTH)
+        # at most `pipeline_depth` dispatched batches wait for a completer,
+        # each holding its audio on the device until it is fetched
+        self._inflight: "queue.Queue" = queue.Queue(maxsize=max(1, int(pipeline_depth)))
         # host-side phase seconds summed over all batches: generate()'s
         # last_timings phases, 'collect' (batch formation) and 'fetch'
         self.phase_totals: Dict[str, float] = {}
@@ -391,7 +389,7 @@ class GenerationService:
                 self._fail(batch, e)
                 self.stats["busy"] = False
                 continue
-            # blocks only while PIPELINE_DEPTH batches wait for a completer
+            # blocks only while `pipeline_depth` batches wait for a completer
             self._inflight.put((batch, audio, t0))
             self.stats["busy"] = False
 

@@ -11,7 +11,9 @@ and count keep their values and `notfinite_count` grows; a finite step
 resets it. The global norm is returned for the trainer's metrics. Written
 with `torch._foreach_*` over the parameter list (a few multi-tensor
 launches per step) and updated in place; the skip decision reads the norm
-on the host once per step.
+on the host once per step. Over sharded parameters the lists hold local
+shards and `shard_groups` makes the norm the single-process one
+(`optim.global_norm`), so every rank clips and skips alike.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Callable, List, Union
 
 import torch
 
-from jen1_tpu_torch.train.optim import global_norm
+from jen1_tpu_torch.train.optim import ShardGroups, global_norm
 
 
 @dataclasses.dataclass
@@ -50,11 +52,12 @@ def fused_adamw_apply(
     eps: float,
     weight_decay: float,
     clip: float,
+    shard_groups: ShardGroups = None,
 ):
     """One fused AdamW step on `params` in place. Returns (state, grad_norm);
     lr may be a float or a schedule evaluated at state.count."""
     grads = [g.float() for g in grads]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shard_groups)
     norm = float(gnorm)
     if not math.isfinite(norm):
         state.notfinite_count += 1

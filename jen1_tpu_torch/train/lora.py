@@ -23,6 +23,14 @@ weight back. The merge thus runs inside each block, so under
 `ModelConfig.remat` the recompute of a checkpointed block merges again from
 the same a and b and the backward sees the merged weights; the modules'
 parameter names stay as they are (a parametrization would rename them).
+The hooks read the weight in place at each call, so they see what FSDP2
+has gathered there.
+
+Under a mesh (jen1_tpu/train/lora.py:211-214) the base is sharded as the
+full model would be (tp, and fsdp with the config's flag) and the adapter
+is replicated. A tp-split target merges its own shard of the delta into its
+local weight; each tp rank then holds only its part of the adapter's
+gradient, which the trainer sums over tp (`_tp_partial`).
 
 `load_base_params` reads the frozen base from a checkpoint directory of
 this package or a reference .pth, shape-checked against the model.
@@ -45,6 +53,7 @@ from jen1_tpu_torch.ckpt.checkpoint import (
 )
 from jen1_tpu_torch.codec.seanet import SConvTranspose1d
 from jen1_tpu_torch.ops.conv import Upsample1d
+from jen1_tpu_torch.parallel.mesh import is_dtensor, local_shard, sharded_axes, to_local
 from jen1_tpu_torch.train.trainer import UnifiedMultiTaskTrainer
 
 # the attention (self and cross) projections and the transformer FFN
@@ -148,11 +157,21 @@ def lora_delta(module: nn.Module, leaf: str, w: torch.Tensor, ab, scale: float
     return to_torch_layout(module, leaf, kernel) * scale
 
 
-def merged_weight(module: nn.Module, leaf: str, w: torch.Tensor, ab, scale: float
-                  ) -> torch.Tensor:
+def merged_weight(module: nn.Module, leaf: str, w: torch.Tensor, ab, scale: float,
+                  name: str = "", plan=None) -> torch.Tensor:
     """W + scale * delta, summed in fp32 and cast to W's dtype
-    (jen1_tpu/train/lora.py:111-127)."""
-    return (w.float() + lora_delta(module, leaf, w, ab, scale)).to(w.dtype)
+    (jen1_tpu/train/lora.py:111-127). A DTensor W (tensor-parallel, `plan`
+    from parallel/mesh.py, `name` its parameter name) gets its local shard
+    of the delta and stays a DTensor of the same layout."""
+    delta = lora_delta(module, leaf, w, ab, scale)
+    if not is_dtensor(w):
+        return (w.float() + delta).to(w.dtype)
+    from torch.distributed.tensor import DTensor
+
+    local = to_local(w)
+    merged = (local.float() + local_shard(delta, w, name, plan)).to(local.dtype)
+    return DTensor.from_local(merged, w.device_mesh, w.placements, run_check=False,
+                              shape=w.shape, stride=w.stride())
 
 
 @torch.no_grad()
@@ -215,23 +234,31 @@ def load_base_params(path: str, model: nn.Module, model_config) -> nn.Module:
     return model
 
 
-def _merge_in(leaf, base, ab, scale, module, args):
+def _merge_in(leaf, ab, scale, name, plan, module, args):
     # straight into _parameters: the attribute stays a Parameter slot, its
-    # name unchanged, holding the merged (differentiable) tensor
-    module._parameters[leaf] = merged_weight(module, leaf, base, ab, scale)
+    # name unchanged, holding the merged (differentiable) tensor; the weight
+    # in place now (FSDP2 may have gathered it) is kept for the restore
+    base = module._parameters[leaf]
+    module.__dict__[f"_lora_base_{leaf}"] = base
+    module._parameters[leaf] = merged_weight(module, leaf, base, ab, scale, name, plan)
 
 
-def _restore(leaf, base, module, args, output):
-    module._parameters[leaf] = base
+def _restore(leaf, module, args, output):
+    base = module.__dict__.pop(f"_lora_base_{leaf}", None)
+    if base is not None:
+        module._parameters[leaf] = base
 
 
-def register_merge_hooks(model: nn.Module, adapter: Adapter, scale: float) -> None:
+def register_merge_hooks(model: nn.Module, adapter: Adapter, scale: float,
+                         plan=None) -> None:
     """Make every target module of `adapter` run with its merged weight:
-    a forward pre-hook merges, a forward hook (also on error) restores."""
-    for path, (module, leaf, base) in lora_targets(model, adapter).items():
+    a forward pre-hook merges, a forward hook (also on error) restores.
+    `plan` is the model's parallel/mesh.py MeshPlan when it is sharded."""
+    names = flax_paths(model)
+    for path, (module, leaf, _) in lora_targets(model, adapter).items():
         module.register_forward_pre_hook(
-            functools.partial(_merge_in, leaf, base, adapter[path], scale))
-        module.register_forward_hook(functools.partial(_restore, leaf, base), always_call=True)
+            functools.partial(_merge_in, leaf, adapter[path], scale, names[path], plan))
+        module.register_forward_hook(functools.partial(_restore, leaf), always_call=True)
 
 
 class LoRATrainer(UnifiedMultiTaskTrainer):
@@ -245,7 +272,6 @@ class LoRATrainer(UnifiedMultiTaskTrainer):
     def __init__(self, config, model, diffusion, conditioner=None, *, device="cuda",
                  adapter: Optional[Adapter] = None,
                  generator: Optional[torch.Generator] = None, **kw):
-        super().__init__(config, model, diffusion, conditioner, device=device, **kw)
         lc = config.lora_config
         if lc.rank < 1:
             raise ValueError("LoRATrainer needs config.lora_config.rank >= 1")
@@ -257,11 +283,13 @@ class LoRATrainer(UnifiedMultiTaskTrainer):
             load_base_params(lc.base_ckpt, model, config.model_config)
         if adapter is None:
             adapter = init_lora(model, self.rank, self.pattern, generator)
+        # the full base is in place: the trainer shards it over a mesh
+        super().__init__(config, model, diffusion, conditioner, device=device, **kw)
         self.adapter: Adapter = {
             path: {k: torch.as_tensor(v).to(self.device, torch.float32).detach().clone()
                    .requires_grad_(True) for k, v in ab.items()}
             for path, ab in adapter.items()}
-        register_merge_hooks(model, self.adapter, self.scale)
+        register_merge_hooks(model, self.adapter, self.scale, self.mesh_plan)
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -269,3 +297,10 @@ class LoRATrainer(UnifiedMultiTaskTrainer):
 
     def _names(self) -> List[str]:
         return [f"{path}.{k}" for path in self.adapter for k in ("a", "b")]
+
+    def _tp_partial(self) -> List[bool]:
+        """An adapter of a tp-split target: each tp rank's gradient is its
+        shard's part."""
+        targets = lora_targets(self.model, self.adapter)
+        return [is_dtensor(targets[path][2]) and "tp" in sharded_axes(targets[path][2])
+                for path in self.adapter for _ in ("a", "b")]

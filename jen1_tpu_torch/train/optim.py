@@ -21,6 +21,13 @@ written as plain torch over a list of fp32 parameters, updated in place:
 The optimizer's step counts are host integers; the finite check reads one
 value from the device per applied step.
 
+Sharded parameters (parallel/mesh.py). The optimizer works on each rank's
+local shards; `shard_groups` gives, per leaf, the process groups over
+which its shards are spread (none for a replicated leaf). The global norm
+then sums each leaf's local squares, all-reduces the sums over those groups
+and counts a replicated leaf once, so it is the single-process norm; the
+finite check is agreed over every rank.
+
 `flatten_optimizer` (optax.flatten around the whole chain, jen1_tpu/train/
 optim.py:52-62): the moments and the accumulator are one fp32 vector each,
 and every call copies the gradients and parameters into one vector, runs
@@ -33,9 +40,10 @@ so it is not interchangeable with the per-parameter layout (the trainer's
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 
@@ -56,16 +64,40 @@ def make_lr_schedule(opt_config) -> Schedule:
     return schedule
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element, fp32, on the device."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+ShardGroups = Optional[Sequence[Tuple[Any, ...]]]
 
 
-def all_finite(tensors: List[torch.Tensor]) -> bool:
+def global_norm(tensors: List[torch.Tensor], shard_groups: ShardGroups = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element, fp32, on the device:
+    the leaves' squared norms summed in one reduction. With `shard_groups`
+    the tensors are local shards: the leaves spread over the same groups
+    are summed together (one reduction each, in leaf order) and
+    all-reduced over those groups, so where every group has one rank the
+    norm is the single-process one, bit for bit."""
+    squares = torch.stack(torch._foreach_norm([t.float() for t in tensors])).square()
+    if shard_groups is None:
+        return squares.sum().sqrt()
+    keys: Dict[Tuple[Any, ...], List[int]] = {}
+    for i, groups in enumerate(shard_groups):
+        keys.setdefault(tuple(groups), []).append(i)
+    total = None
+    for groups, idx in keys.items():  # the same order on every rank
+        s = squares[torch.as_tensor(idx, device=squares.device)].sum()
+        for group in groups:
+            dist.all_reduce(s, group=group)
+        total = s if total is None else total + s
+    return total.sqrt()
+
+
+def all_finite(tensors: List[torch.Tensor], shard_groups: ShardGroups = None) -> bool:
     """True when no element is NaN or +-inf (one read from the device).
-    The max-abs norm is finite exactly when every element is."""
-    return bool(torch.isfinite(torch.stack(torch._foreach_norm(tensors, float("inf")))).all())
+    The max-abs norm is finite exactly when every element is. With
+    `shard_groups` the verdict is agreed over every rank."""
+    bad = (~torch.isfinite(torch.stack(torch._foreach_norm(tensors, float("inf"))))).any()
+    if shard_groups is not None:
+        bad = bad.float()
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+    return not bool(bad)
 
 
 @dataclasses.dataclass
@@ -84,9 +116,10 @@ class AdamWChain:
     """The optax chain of jen1_tpu/train/optim.py:27-63 over a parameter list."""
 
     def __init__(self, opt_config, grad_accum_every: int = 1,
-                 max_consecutive_errors: int = 100):
+                 max_consecutive_errors: int = 100, flatten_ok: bool = True):
         self.oc = opt_config
-        self.flatten = bool(opt_config.flatten_optimizer)
+        # one flat vector cannot hold sharded leaves (jen1_tpu/train/optim.py)
+        self.flatten = bool(opt_config.flatten_optimizer) and flatten_ok
         self.k = int(grad_accum_every)
         self.skip_nonfinite = opt_config.skip_nonfinite_updates
         self.max_consecutive_errors = max_consecutive_errors
@@ -103,46 +136,48 @@ class AdamWChain:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: ChainState,
-               params: List[torch.Tensor]) -> ChainState:
-        """Apply one call's update to `params` in place; returns `state`."""
+               params: List[torch.Tensor], shard_groups: ShardGroups = None) -> ChainState:
+        """Apply one call's update to `params` in place; returns `state`.
+        `shard_groups`: see `global_norm` (never with flatten, which holds
+        no sharded leaf)."""
         if self.flatten:
             flat = [flat_fp32(params)]
-            self._update([flat_fp32(grads)], state, flat)
+            self._update([flat_fp32(grads)], state, flat, None)
             sizes = [p.numel() for p in params]
             torch._foreach_copy_(params, [c.view_as(p) for c, p in
                                           zip(flat[0].split(sizes), params)])
             return state
-        return self._update([g.float() for g in grads], state, params)
+        return self._update([g.float() for g in grads], state, params, shard_groups)
 
-    def _update(self, grads, state: ChainState, params) -> ChainState:
+    def _update(self, grads, state: ChainState, params, shard_groups) -> ChainState:
         if self.k == 1:
-            self._apply_if_finite(grads, state, params)
+            self._apply_if_finite(grads, state, params, shard_groups)
             return state
         acc = state.acc
         # Welford running mean: acc + (g - acc) / (n + 1)
         diff = torch._foreach_sub(grads, acc)
         torch._foreach_add_(acc, diff, alpha=1.0 / (state.mini_step + 1))
         if state.mini_step == self.k - 1:
-            self._apply_if_finite(acc, state, params)
+            self._apply_if_finite(acc, state, params, shard_groups)
             torch._foreach_mul_(acc, 0.0)
             state.gradient_step += 1
         state.mini_step = (state.mini_step + 1) % self.k
         return state
 
-    def _apply_if_finite(self, grads, state: ChainState, params) -> None:
+    def _apply_if_finite(self, grads, state: ChainState, params, shard_groups) -> None:
         if self.skip_nonfinite:
-            finite = all_finite(grads)
+            finite = all_finite(grads, shard_groups)
             state.notfinite_count = 0 if finite else state.notfinite_count + 1
             if not finite:
                 state.total_notfinite += 1
                 if state.notfinite_count <= self.max_consecutive_errors:
                     return
-        self._clip_adamw(grads, state, params)
+        self._clip_adamw(grads, state, params, shard_groups)
 
-    def _clip_adamw(self, grads, state: ChainState, params) -> None:
+    def _clip_adamw(self, grads, state: ChainState, params, shard_groups) -> None:
         oc = self.oc
         b1, b2, eps = oc.beta_1, oc.beta_2, 1e-8
-        norm = global_norm(grads)
+        norm = global_norm(grads, shard_groups)
         # clip_by_global_norm: keep g where ||g|| < clip, else g / ||g|| * clip
         factor = torch.where(norm < oc.grad_clip, torch.ones_like(norm),
                              oc.grad_clip / norm)
@@ -167,5 +202,6 @@ def flat_fp32(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
 
-def make_optimizer(opt_config, grad_accum_every: int = 1) -> AdamWChain:
-    return AdamWChain(opt_config, grad_accum_every)
+def make_optimizer(opt_config, grad_accum_every: int = 1, flatten_ok: bool = True
+                   ) -> AdamWChain:
+    return AdamWChain(opt_config, grad_accum_every, flatten_ok=flatten_ok)

@@ -3,7 +3,10 @@
     python -m jen1_tpu_torch.train.train --config cfg.json \
         (--latents-dir d | --dataset-dir d) --max-steps N [--device cpu] \
         [--log-dir logs] [--save-dir ckpts] [--profile] \
-        [--lora-rank r [--lora-alpha a] [--lora-base-ckpt base]]
+        [--lora-rank r [--lora-alpha a] [--lora-base-ckpt base]] \
+        [--distributed [--dp N] [--sp N] [--tp N] [--fsdp]]
+
+    torchrun --nproc_per_node N -m jen1_tpu_torch.train.train --distributed ...
 
 Trains `UnifiedMultiTaskTrainer` on one device ("cuda" unless asked
 otherwise), with weights random from `config.seed`, over precomputed
@@ -35,8 +38,16 @@ are restored and the loader skips the batches already taken, so, since
 every draw is a function of (seed, step), the resumed run replays the
 unbroken one. `max_steps` counts the steps of this invocation.
 
-Options of the JAX CLI whose modules are not ported yet fail loudly, naming
-the ROADMAP item: a mesh (dp/tp/sp/fsdp) and multi-host `--distributed`.
+With `--distributed` the process group comes up from the torchrun
+environment (NCCL on cuda:LOCAL_RANK, gloo with --device cpu), and the
+trainer runs over the mesh of `parallel_config` (`--dp/--sp/--tp/--fsdp`;
+dp -1 takes the rest of the world). Every rank loads the same global batch
+(the loader's seed is the run's) and keeps its rows (`trainer.local_rows`)
+and, under sp, its frames of the latents; in wav mode each rank encodes only
+its own rows. Logs, metrics and checkpoint
+files come from rank 0; every rank gathers the checkpoint's state and reads
+it back on resume. A mesh needs the process group: without one, any dp, tp,
+sp or fsdp setting raises.
 """
 
 from __future__ import annotations
@@ -47,11 +58,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from jen1_tpu_torch.api.generation import resolve_device
 from jen1_tpu_torch.ckpt.checkpoint import CheckpointManager
 from jen1_tpu_torch.conditioning.conditioners import create_multi_conditioner
-from jen1_tpu_torch.config import ROADMAP_MESH, Config, not_ported
+from jen1_tpu_torch.config import Config
 from jen1_tpu_torch.data.dataset import (
     LatentDataset,
     MusicDataset,
@@ -62,6 +74,7 @@ from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
 from jen1_tpu_torch.models.unet import unet_from_model_config
 from jen1_tpu_torch.ops.initializers import init_module
+from jen1_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from jen1_tpu_torch.train.optim import make_lr_schedule
 from jen1_tpu_torch.train.trainer import UnifiedMultiTaskTrainer, step_generator
 from jen1_tpu_torch.utils.logger import MetricLogger, get_logger
@@ -110,18 +123,24 @@ def latent_encoder(config: Config, device):
     return run
 
 
-def check_ported(config: Config) -> None:
-    """Refuse the settings whose modules the port does not have yet."""
+def run_mesh(config: Config):
+    """The DeviceMesh of `config.parallel_config` over the process group that
+    is up, or None without one."""
     pc = config.parallel_config
-    if pc.dp not in (-1, 1) or pc.tp != 1 or pc.sp != 1 or pc.fsdp:
-        raise not_ported("a device mesh (dp/tp/sp/fsdp)", ROADMAP_MESH)
+    return make_mesh(dp=pc.dp, tp=pc.tp, sp=pc.sp) if dist.is_initialized() else None
 
 
-def build_trainer(config: Config, conditioner=None, *, device="cuda") -> UnifiedMultiTaskTrainer:
+def build_trainer(config: Config, conditioner=None, *, device="cuda",
+                  mesh=None) -> UnifiedMultiTaskTrainer:
     """The UNet (weights from `config.seed`), the diffusion, the frozen
     conditioner and the trainer, all on `device`: a `LoRATrainer` (adapter
-    from seed + 0x10AA) when `config.lora_config.rank > 0`."""
-    check_ported(config)
+    from seed + 0x10AA) when `config.lora_config.rank > 0`. With `mesh` the
+    trainer shards the full weights over it; without one any dp, tp, sp or
+    fsdp setting raises."""
+    pc = config.parallel_config
+    if mesh is None and (pc.dp not in (-1, 1) or pc.tp != 1 or pc.sp != 1 or pc.fsdp):
+        raise ValueError("a device mesh (dp/tp/sp/fsdp) needs a process group: run under "
+                         "torchrun with --distributed (or pass a make_mesh() mesh)")
     dev = resolve_device(device)
 
     def gen(offset: int) -> torch.Generator:
@@ -144,21 +163,30 @@ def build_trainer(config: Config, conditioner=None, *, device="cuda") -> Unified
         from jen1_tpu_torch.train.lora import LoRATrainer
 
         return LoRATrainer(config, model, diffusion, conditioner, device=dev,
-                           generator=gen(0x10AA))
-    return UnifiedMultiTaskTrainer(config, model, diffusion, conditioner, device=dev)
+                           generator=gen(0x10AA), mesh=mesh)
+    return UnifiedMultiTaskTrainer(config, model, diffusion, conditioner, device=dev, mesh=mesh)
 
 
 def run(config: Config, max_steps: Optional[int] = None, *, device="cuda",
-        profile: bool = False):
+        profile: bool = False, distributed: bool = False):
     """Train over `config.dataset_config.latents_dir`, or the audio of its
     dataset_dir; returns (trainer, state). `profile` records steps 2-4
-    into a trace in log_dir."""
-    check_ported(config)
+    into a trace in log_dir (on rank 0). `distributed` brings up the process
+    group from the torchrun environment; with a group up the trainer runs
+    over `config.parallel_config`'s mesh."""
     dc = config.dataset_config
     if not dc.latents_dir and not dc.dataset_dir:
         raise ValueError("set dataset_config.latents_dir or dataset_config.dataset_dir")
-    logger = get_logger(config.log_dir)
-    metrics_logger = MetricLogger(config.log_dir)
+    if distributed:
+        device = init_distributed(device)
+    mesh = run_mesh(config)
+    rank0 = mesh is None or dist.get_rank() == 0
+    log_dir = config.log_dir if rank0 else None
+    logger = get_logger(log_dir)
+    metrics_logger = MetricLogger(log_dir)
+    if mesh is not None:
+        logger.info(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+                    f"{dist.get_world_size()} ranks ({dist.get_backend()})")
     dataset = LatentDataset(dc.latents_dir) if dc.latents_dir else music_dataset(config)
     train_ds, val_ds = train_test_split(dataset, dc.train_test_split, config.seed)
     logger.info(f"dataset: {len(train_ds)} train / {len(val_ds)} val windows")
@@ -168,7 +196,7 @@ def run(config: Config, max_steps: Optional[int] = None, *, device="cuda",
             "with drop_last the loader would yield nothing"
         )
 
-    trainer = build_trainer(config, device=device)
+    trainer = build_trainer(config, device=device, mesh=mesh)
     encode = latent_encoder(config, trainer.device)
     if encode is not None:
         # the probe batch: the codec is built and run once before the loop
@@ -193,7 +221,8 @@ def run(config: Config, max_steps: Optional[int] = None, *, device="cuda",
     try:
         for step_idx, (latents, metadata) in enumerate(train_iter):
             gstep = start_step + step_idx
-            if profile and step_idx == PROFILE_STEPS[0]:
+            latents, metadata = trainer.local_rows(latents, metadata)
+            if profile and rank0 and step_idx == PROFILE_STEPS[0]:
                 start_trace(config.log_dir or "profile")
                 tracing = True
             with annotate("train_step"):
@@ -222,8 +251,8 @@ def run(config: Config, max_steps: Optional[int] = None, *, device="cuda",
                 logger.info(f"trace of steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1]}: "
                             f"{stop_trace()}")
             if config.eval_interval and step % config.eval_interval == 0 and len(val_ds):
-                val_iter = make_dataloader(val_ds, dc.batch_size, shuffle=False,
-                                           epochs=1, prefetch=0)
+                val_iter = (trainer.local_rows(lat, meta) for lat, meta in make_dataloader(
+                    val_ds, dc.batch_size, shuffle=False, epochs=1, prefetch=0))
                 if encode is not None:
                     val_iter = ((encode(lat), meta) for lat, meta in val_iter)
                 val_metrics = trainer.evaluate(state, val_iter, config.seed)
@@ -265,15 +294,16 @@ def main(argv=None) -> None:
                         "reference .pth")
     p.add_argument("--profile", action="store_true",
                    help="record steps 2-4 with torch.profiler into log_dir")
-    # accepted so that they fail loudly, not as unknown arguments
-    for flag in ("--dp", "--tp", "--sp"):
-        p.add_argument(flag, type=int, default=None)
-    for flag in ("--fsdp", "--distributed"):
-        p.add_argument(flag, action="store_true")
+    p.add_argument("--dp", type=int, default=None, help="data-parallel size")
+    p.add_argument("--tp", type=int, default=None, help="tensor-parallel size")
+    p.add_argument("--sp", type=int, default=None,
+                   help="sequence-parallel size (the latent's length)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP2 parameter and optimizer sharding over dp")
+    p.add_argument("--distributed", action="store_true",
+                   help="bring up the process group from the torchrun environment")
     args = p.parse_args(argv)
 
-    if args.distributed:
-        raise not_ported("multi-host training (--distributed)", ROADMAP_MESH)
     config = Config.from_json(args.config) if args.config else Config()
     dc, pc = config.dataset_config, config.parallel_config
     if args.latents_dir:
@@ -298,7 +328,13 @@ def main(argv=None) -> None:
         lc.alpha = args.lora_alpha
     if args.lora_base_ckpt is not None:
         lc.base_ckpt = args.lora_base_ckpt
-    run(config, max_steps=args.max_steps, device=args.device, profile=args.profile)
+    was_up = dist.is_initialized()
+    try:
+        run(config, max_steps=args.max_steps, device=args.device, profile=args.profile,
+            distributed=args.distributed)
+    finally:
+        if dist.is_initialized() and not was_up:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -67,6 +67,13 @@ TRAINING_REST_MODULES = [
 ]
 
 
+# the device mesh
+MESH_MODULES = [
+    "jen1_tpu_torch/parallel/__init__.py", "jen1_tpu_torch/parallel/mesh.py",
+    "jen1_tpu_torch/parallel/sp.py",
+]
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     found = {str(p.relative_to(ROOT)) for p in PORT_FILES}
@@ -75,6 +82,7 @@ def test_port_files_found():
     assert set(LONGFORM_CKPT_MODULES) <= found
     assert set(SERVING_MODULES) <= found
     assert set(TRAINING_REST_MODULES) <= found
+    assert set(MESH_MODULES) <= found
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

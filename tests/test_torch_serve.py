@@ -184,6 +184,47 @@ class TestGenerationService:
         for i, r in enumerate(results):
             assert r is not None and float(r.flat[0]) == float(i)
 
+    @pytest.mark.parametrize("depth", [1, 2])
+    def test_pipeline_depth_bounds_batches_in_flight(self, depth):
+        """GenerationService(pipeline_depth=k) (jen1_tpu/serve.py:112,
+        172-175): with the one completer stuck in a fetch, the dispatcher
+        runs k more batches into the in-flight queue and one that waits to
+        enter it, then stops until the fetch returns."""
+        release = threading.Event()
+
+        class SlowFetch:  # a device result whose fetch waits for `release`
+            def __init__(self, audio):
+                self.audio = audio
+
+            def __array__(self, dtype=None, copy=None):
+                release.wait(30)
+                return self.audio.numpy()
+
+        class Fake(FakeJen1):
+            def generate(self, *a, **kw):
+                return SlowFetch(super().generate(*a, **kw))
+
+        fake = Fake()
+        svc = GenerationService(fake, max_batch=1, max_wait_ms=1.0, n_completers=1,
+                                pipeline_depth=depth, default_seconds=0.01, default_steps=1)
+        threads = [threading.Thread(target=svc.submit, args=(f"r{i}",), kwargs={"timeout": 60})
+                   for i in range(depth + 4)]
+        try:
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 10
+            while len(fake.calls) < depth + 2 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            time.sleep(0.3)  # the dispatcher would go on here if unbounded
+            assert len(fake.calls) == depth + 2  # fetched 1 + queued k + waiting 1
+            assert svc._inflight.qsize() == depth == svc._inflight.maxsize
+        finally:
+            release.set()
+            for t in threads:
+                t.join()
+            svc.close()
+        assert len(fake.calls) == depth + 4 and svc.stats["errors"] == 0
+
     def test_stats_exact_under_four_completers(self):
         """stats['batches'] and ['padded_lanes'] are read-modify-writes on
         four completer threads at once: none may be lost."""
@@ -508,9 +549,17 @@ def test_batch_generate_writes_wavs_and_manifest(tmp_path):
             assert (w.getnchannels(), w.getframerate(), w.getnframes()) == (2, 48_000, 48_000)
 
 
-def test_batch_generate_refuses_dp(tmp_path):
+def test_batch_generate_refuses_dp(tmp_path, monkeypatch):
+    """--dp 2 is ported (tests/test_torch_mesh_entry.py runs it on two gloo
+    ranks);
+    outside a torchrun world of 2 it raises, naming torchrun, and a batch
+    that dp does not divide is refused."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     prompts = tmp_path / "prompts.txt"
     prompts.write_text("x\n")
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py on torch.distributed"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        batch_generate.main(["--prompts", str(prompts), "--out", str(tmp_path / "o"),
+                             "--dp", "2", "--batch-size", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="multiple of --dp 2"):
         batch_generate.main(["--prompts", str(prompts), "--out", str(tmp_path / "o"),
                              "--dp", "2", "--device", "cpu"])

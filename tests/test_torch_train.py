@@ -566,16 +566,33 @@ def test_cli_trains_on_cpu(tmp_path):
     assert any("loss/val" in r for r in records)
 
 
-@pytest.mark.parametrize("args,match", [
-    (["--tp", "2"], "mesh"),
-    (["--fsdp"], "mesh"),
-    (["--distributed"], "multi-host"),
+@pytest.mark.parametrize("args,error,match", [
+    (["--tp", "2"], ValueError, "needs a process group: run under torchrun with --distributed"),
+    (["--fsdp"], ValueError, "needs a process group: run under torchrun with --distributed"),
+    (["--distributed"], RuntimeError, "torchrun environment"),
 ])
-def test_cli_refuses_unported_options(tmp_path, args, match):
+def test_cli_refuses_unported_options(tmp_path, args, error, match, monkeypatch):
+    """The mesh options are ported (tests/test_torch_mesh_entry.py runs them over
+    gloo); a mesh needs a process group, so without `--distributed` they
+    raise, and `--distributed` outside torchrun names what it lacks."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     path, latents = tiny_cli_config(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train_cli.main(["--config", str(path), "--latents-dir", str(latents), "--max-steps",
                         "1", "--device", "cpu", *args])
+
+
+@pytest.mark.parametrize("field,value", [("fsdp", True), ("tp", 2), ("dp", 2), ("sp", 2)])
+def test_build_trainer_refuses_a_parallel_config_without_a_mesh(field, value):
+    """A dp, tp, sp or fsdp setting needs a mesh: without one build_trainer
+    raises instead of building a single-device trainer."""
+    from jen1_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    setattr(cfg.parallel_config, field, value)
+    with pytest.raises(ValueError, match="needs a process group"):
+        train_cli.build_trainer(cfg, device="cpu")
 
 
 # ---------------------------------------------------------- (g) config
@@ -698,3 +715,25 @@ def test_config_round_trip_and_override():
     assert cfg.model_config.attentions == (0, 1, 0)
     again = Config.from_dict(json.loads(cfg.to_json()))
     assert again == cfg and again.dataset_config.sample_duration == 30
+
+
+def test_metric_logger_histograms_images_audio(tmp_path):
+    """The port's MetricLogger has the JAX logger's surface
+    (tests/test_misc.py:89-102): scalars, histograms, images, audio and
+    per-index vectors land in metrics.jsonl and TensorBoard."""
+    import os
+
+    from jen1_tpu_torch.utils.logger import MetricLogger
+
+    ml = MetricLogger(str(tmp_path))
+    ml.log(1, {"loss/train": 0.5, "lr": 3e-5})
+    ml.log_histograms(1, {"params/w": np.random.default_rng(0).normal(size=64),
+                          "grads/w": torch.randn(64)})
+    ml.log_images(1, {"latent/spec": np.zeros((3, 8, 8), np.float32)})
+    ml.log_audio(1, "sample", np.zeros((1, 160), np.float32), 1600)
+    ml.log_vectors({"loss/per_timestep": [0.9, 0.5, 0.3]})
+    ml.close()
+    rec = json.loads((tmp_path / "metrics.jsonl").read_text().splitlines()[0])
+    assert rec["step"] == 1 and rec["loss/train"] == 0.5
+    if ml._tb is not None:  # tensorboard installed: event file written
+        assert any(n.startswith("events.") for n in os.listdir(tmp_path))
