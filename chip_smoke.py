@@ -108,14 +108,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    batch walls, audio-s per wall-s, phase_totals, peak
                    memory, K1 launches, stats; the busy share of a 10-step
                    B=4 request.
- 18. flagship    - Jen1(Config()) with the UNet's convs quantized at the
+ 18. graphs      - the sampler steps as captured CUDA graphs (the default on
+                   the card) against the same requests under disable_graphs(),
+                   on the same Jen1: the text_guided VDM request, music_inpaint,
+                   music_cont, DDIM at encoder_reuse 2 and a seeded request
+                   through GenerationService at B=4; each case empties the
+                   sample cache, then: the first graphed request's wall,
+                   capture seconds and the memory its cache entry and the
+                   graphs' pool hold, three interleaved eager / graphed
+                   pairs (one for the tasks and encoder reuse; walls, peak
+                   memory, graphs replayed, K1 launches counted
+                   at every replay, equal to the eager count), every graphed
+                   latent and audio against the eager ones (bit-equal
+                   expected; a latent beyond 1e-5 x max|latent| fails), and a
+                   10-step request each way under torch.profiler (busy
+                   share); then the service under load (two keys at once, the
+                   second captured while the first batch is fetched). Phase
+                   flagship ends with the same case for its int8 DDIM request
+                   (K4 5,200 per request, counted at every replay).
+ 19. flagship    - Jen1(Config()) with the UNet's convs quantized at the
                    default thresholds: the census, one UNet forward at
                    (2, 4500, 128) with K4, with the plain version and with
                    fp32 weights; one warm-up and two timed 100-step 30 s
                    DDIM requests (K4 launches, shapes, finiteness), one
                    request with fp32 weights, one 10-step request under
                    torch.profiler.
- 19. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
+ 20. train       - UnifiedMultiTaskTrainer under longform_config() at 30 s
                    windows, B=3, GDM, fused AdamW, full width: 2 warm-up
                    steps, 5 timed steps, launches of K1/K2/K3 per step (all
                    on the tensor-core route), and one more step under
@@ -128,69 +146,74 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    steps with the same draws: losses and gradient leaves at
                    the train bars, walls and peak memory of every step,
                    K1/K2/K3 8/4/4 per remat step.
- 20. small-data  - two WAV and one FLAC file (48 kHz stereo, sidecar prompts)
+ 21. small-data  - two WAV and one FLAC file (48 kHz stereo, sidecar prompts)
                    written by the port's writers; the native decoders built
                    from native/*.cpp; load_audio against the written samples;
                    preprocess scan, and preprocess encode on the card against
                    the CPU with one tiny codec.
- 21. small-lora  - a tiny LoRATrainer (rank 4) takes two steps on the card and
+ 22. small-lora  - a tiny LoRATrainer (rank 4) takes two steps on the card and
                    on the CPU with the same base, adapter and draws, plain and
                    with remat: losses and adapter gradients, base unchanged;
                    Jen1(ckpt_path=base, lora_path=run) generates, card vs CPU.
- 22. small-composer - a tiny track_gen train step and a tiny generate_tracks
+ 23. small-composer - a tiny track_gen train step and a tiny generate_tracks
                    with one context track, card vs CPU.
- 23. lora        - LoRA at full width (longform_config(), rank 16, B=3, 30 s):
+ 24. lora        - LoRA at full width (longform_config(), rank 16, B=3, 30 s):
                    three steps, K1/K2/K3 4/4/4 each on the tensor-core route;
                    walls, peak memory, adapter and checkpoint bytes;
                    Jen1(lora_path=...) load-and-merge wall and merged weights.
- 24. wav-train   - four 30 s WAV files; train.run(dataset_dir=...) for 5
+ 25. wav-train   - four 30 s WAV files; train.run(dataset_dir=...) for 5
                    steps with profile=True: encode and step walls, K1/K2/K3
                    4/4/4 per step, the trace naming the port's kernels.
- 25. composer    - Jen1(composer_config(4)).generate_tracks at 30 s, GDM DDIM
+ 26. composer    - Jen1(composer_config(4)).generate_tracks at 30 s, GDM DDIM
                    cut to 20 steps, one context track: wall, peak memory, K1
                    launches.
- 26. small-features - tiny widths, card against CPU: Snake generate() (VDM,
+ 27. small-features - tiny widths, card against CPU: Snake generate() (VDM,
                    DDIM) and a Snake train step (alpha gradients included),
                    the .pth export -> import round trip, the STFT's DC phase
                    sign and STFT UNet forwards with and without
                    use_stft_context, the three-type MultiConditioner and a
                    UNet with global features, log-mel FAD, SNR, spectral
                    convergence and a random VGGish's embeddings.
- 27. snake       - Jen1(longform_config(), use_snake=True): two 100-step 30 s
+ 28. snake       - Jen1(longform_config(), use_snake=True): two 100-step 30 s
                    VDM requests (walls, peak memory, K1 200 each, all
                    tensor-core), device kernels of a profiled 10-step request
                    against phase main's, export to a reference .pth read back
                    by Jen1(ckpt_path=...) bit for bit (bf16 weights keep alpha
                    fp32), two train steps at B = 3 (K1/K2/K3 4/4/4, alpha
                    gradients finite and nonzero).
- 28. stft        - UNetCFG1d at longform widths with use_stft and
+ 29. stft        - UNetCFG1d at longform widths with use_stft and
                    use_stft_context on 30 s of 48 kHz stereo, B = 1 with batch
                    CFG: forward walls, peak memory, output shape, K1 at the
                    level-1 length 1407 (4 launches in two forwards).
- 29. eval        - phase main's and phase snake's requests as WAV; run_eval on
+ 30. eval        - phase main's and phase snake's requests as WAV; run_eval on
                    the card and on the CPU (log-mel FAD, SNR, spectral
                    convergence) and a random VGGish FAD on both: walls,
                    card against CPU.
- 30. small-mesh  - `torchrun --standalone --nproc_per_node 1 -m
+ 31. small-mesh  - `torchrun --standalone --nproc_per_node 1 -m
                    jen1_tpu_torch.train.train --distributed --fsdp` over a
                    tiny latents directory: NCCL, exit 0, one checkpoint that
                    loads into a single-process trainer bit for bit; a tiny
                    Jen1 with mesh = make_mesh() (NCCL, world 1) against no
                    mesh, on the card.
- 31. mesh        - an in-process NCCL group of one rank: main's Jen1 with
-                   mesh = make_mesh(): a warm-up and two 100-step 30 s
-                   requests with main's seeds (walls beside main's,
+ 32. mesh        - an in-process NCCL group of one rank: main's Jen1 with
+                   mesh = make_mesh(): a warm-up and one 100-step 30 s
+                   request with main's first seed, beside the same request
+                   without the mesh, both eager (walls beside main's,
                    max|diff| to main's audio, K1 200 each); a trainer with
                    fsdp over the mesh beside one without (full width, B=3,
                    30 s): losses and gradient leaves every step, walls,
                    peak memory, K1/K2/K3 4/4/4, the gathered checkpoint's
                    save wall.
-The phases run in the order small-*, main .. serve, mesh, flagship, train,
-lora, wav-train, composer, snake, stft, eval (small-data, small-lora,
-small-composer, small-features and small-mesh after small-serve). The line
-before the last is the `{"kernels": [...]}` record;
-the last line
-is `{"ok": true, "device": {...}}`. Imports nothing of JAX or `jen1_tpu`.
+The phases run in the order small-*, main .. serve, graphs, mesh, flagship,
+train, lora, wav-train, composer, snake, stft, eval (small-data, small-lora,
+small-composer, small-features and small-mesh after small-serve). On the
+card generate() runs the VDM sampler and DDIM as captured CUDA graphs
+(jen1_tpu_torch/utils/cuda_graphs.py) unless disable_graphs() is active, so
+every request of main, tasks, long, bf16-weights, reuse (DDIM), serve,
+graphs, flagship and snake is graphed; the kernels' launch counts add the
+captured launches at every replay. The line before the last is the
+`{"kernels": [...]}` record; the last line is `{"ok": true, "device":
+{...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
 
 from __future__ import annotations
@@ -939,7 +962,8 @@ def tiny_pair(torch, dtype: str = "float32", cfg=None, codec=TINY_CODEC, **jen1_
 
 
 def phase_small(torch) -> None:
-    """The whole slice at tiny widths, on the card against the CPU: the
+    """The whole slice at tiny widths, on the card (its sampler steps as a
+    captured CUDA graph) against the CPU: the
     same T5, UNet and codec weights and the same x_T, fp32, 13 s at 1600 Hz
     (520 latent frames, so the level-1 transformer attends over 260 frames
     through the flash path and the decode takes 4 chunks). Bar: rtol 2e-2 /
@@ -963,10 +987,12 @@ def phase_small(torch) -> None:
     vdm.initial_noise = draw
     err = float(np.abs(out - ref).max())
     close = out.shape == ref.shape and np.allclose(out, ref, rtol=2e-2, atol=2e-3)
-    log(f"[small] tiny generate() card vs CPU: shape {out.shape} max|diff|={err:.3e} "
+    log(f"[small] tiny generate() card (graphed: {card.graphs.captures} graph captured, "
+        f"{card.graphs.replays} replays) vs CPU: shape {out.shape} max|diff|={err:.3e} "
         f"(rtol 2e-2, atol 2e-3) flash launches={launched}")
-    if not close or launched == 0:
-        raise SystemExit("chip_smoke: the tiny generate() on the card disagrees with the CPU")
+    if not close or launched != 2 * kw["steps"] or card.graphs.captures != 1:
+        raise SystemExit("chip_smoke: the tiny graphed generate() on the card disagrees with "
+                         "the CPU")
 
 
 def phase_small_gdm(torch) -> None:
@@ -1462,7 +1488,7 @@ def phase_main(torch) -> tuple:
     prompt, seed = SLICE_PROMPTS[0]
     by_name = profile_window(torch, "profile", f"{PROFILE_STEPS}-step request",
                              lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
-                                                   seconds=SLICE_SECONDS))
+                                                   seconds=SLICE_SECONDS), warm=True)
     log_kernel_time(by_name, "profile", ("flash_fwd_mma",), "K1", "the profiled request")
     return total, jen1, outs, sum(n for n, _ in by_name.values()), walls
 
@@ -1823,21 +1849,31 @@ def phase_flagship(torch) -> int:
     im.attach_qweights(jen1.model, q)
     by_name = profile_window(torch, "flagship-profile", f"{PROFILE_STEPS}-step int8 request",
                              lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
-                                                   seconds=FLAGSHIP_SECONDS, use_gdm=True))
+                                                   seconds=FLAGSHIP_SECONDS, use_gdm=True),
+                             warm=True)
     k4 = [(n, t) for name, (n, t) in by_name.items() if "int8w_" in name]
     log(f"[flagship-profile] K4 device time {sum(t for _, t in k4):.4f} s in "
         f"{sum(n for n, _ in k4)} kernel launches")
-    return total
+    return total + graph_case(
+        torch, "graphs-flagship", jen1,
+        lambda: jen1.generate(prompt, seed=seed, batch_size=1, **kw), (0, expected),
+        lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
+                              seconds=FLAGSHIP_SECONDS, use_gdm=True),
+        (0, read * PROFILE_STEPS))[1]
 
 
-def profile_window(torch, tag: str, what: str, fn) -> dict:
+def profile_window(torch, tag: str, what: str, fn, warm: bool = False) -> dict:
     """Run `fn` once under torch.profiler: the device's busy share of its
     wall (sum of kernel times over the wall) and the kernels that take the
     most device time. Returns {kernel name: (launches, device s)}. Only the
     CUDA activity is traced: recording every CPU op of ~40,000 launches
-    slows the host (so the wall) and takes ~25 s to post-process."""
+    slows the host (so the wall) and takes ~25 s to post-process. `warm`
+    runs `fn` once before, unprofiled, so that a request's sampler graphs
+    are captured before the profiled run."""
     from torch.profiler import ProfilerActivity, profile
 
+    if warm:
+        fn()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1864,6 +1900,14 @@ def profile_window(torch, tag: str, what: str, fn) -> dict:
 
 def is_port_kernel(name: str) -> bool:
     return "flash_" in name or "int8w_" in name
+
+
+def trace_launches(by_name: dict) -> tuple:
+    """(K1, K4) launches in a profile_window trace (PyTorch's own flash
+    kernels excluded)."""
+    k1 = sum(n for name, (n, _) in by_name.items()
+             if "flash_fwd" in name and "pytorch_flash" not in name)
+    return k1, sum(n for name, (n, _) in by_name.items() if "int8w_" in name)
 
 
 def log_kernel_time(by_name: dict, tag: str, keys, what: str, where: str) -> None:
@@ -2383,7 +2427,7 @@ def phase_reuse(torch, jen1) -> int:
         by_name = profile_window(torch, "reuse-profile", f"{PROFILE_STEPS}-step DDIM, k={k}",
                                  lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
                                                        seconds=SLICE_SECONDS, use_gdm=True,
-                                                       encoder_reuse=k))
+                                                       encoder_reuse=k), warm=True)
         log_kernel_time(by_name, "reuse-profile", ("flash_fwd_mma",), "K1",
                         f"the profiled k={k} request")
     return total
@@ -2525,6 +2569,242 @@ def phase_serve(torch, jen1) -> int:
     log_kernel_time(by_name, "serve-profile", ("flash_fwd_mma",), "K1",
                     f"the profiled B={SERVE_BATCH} request")
     return launched
+
+
+# graphs: each case's requests as captured CUDA graphs against the same
+# requests under disable_graphs(), in GRAPH_PAIRS interleaved pairs (eager,
+# graphed, graphed, eager, eager, graphed). The same kernels run on the same
+# inputs, so equal bits are expected; a latent further than GRAPH_REL_BAR of
+# max|latent| from the eager one fails the run.
+GRAPH_PAIRS = 3
+GRAPH_ORDER = ("eager", "graphed", "graphed", "eager", "eager", "graphed")
+GRAPH_REL_BAR = 1e-5
+# the loaded service: SERVE_BATCH requests at SLICE_STEPS and as many at
+# GRAPH_LOAD_STEPS, submitted at once, so that the second key's capture runs
+# while a completer fetches the first batch
+GRAPH_LOAD_STEPS = 50
+
+
+def counters():
+    """(K1, K4) launches so far."""
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops import int8_matmul as im
+
+    return fa.LAUNCHES, im.LAUNCHES
+
+
+def pool_bytes(torch, jen1) -> int:
+    """Bytes of the device memory segments in the memory pool of `jen1`'s
+    graphs."""
+    pool = tuple(jen1.graphs.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def graph_case(torch, tag: str, jen1, request, want: tuple, profile_request,
+               profile_want: tuple, pairs: int = GRAPH_PAIRS) -> tuple:
+    """One case of phase graphs. `request()` runs one request through
+    `jen1` (directly or through a service over it) and returns its audio;
+    the latents it decodes are recorded. The sample cache is emptied first,
+    so the first graphed request captures: its wall beside the next graphed
+    ones gives the capture's cost, and the memory its cache entry keeps
+    allocated (static buffers) and the graphs' pool holds are logged. Then
+    `pairs` interleaved eager / graphed pairs: walls, peak memory, (K1, K4)
+    launches, which must equal
+    `want` in both modes, and every graphed audio and latent, the first
+    request's (whose first step is the eager warm-up) included, against the
+    first eager one. Then a PROFILE_STEPS request each way under
+    torch.profiler (`profile_request`; the graphed one after an unprofiled
+    request that captures its key) for the busy share; the (K1, K4)
+    launches the trace lists must equal `profile_want` and the counters'
+    increase over that request, so that the counts added at replay are held
+    against the launches the card made. Returns the (K1, K4) launches of the
+    counted requests, eager and graphed."""
+    import contextlib
+
+    import numpy as np
+
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops import int8_matmul as im
+    from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
+
+    latents = []
+    decode = jen1.codec.decode_latent_chunked
+
+    def recording(z, **kw):
+        latents.append(z.float().cpu().numpy())
+        return decode(z, **kw)
+
+    graphs = jen1.graphs
+    jen1._sample_cache.clear()
+    jen1.codec.decode_latent_chunked = recording
+    results = {"eager": [], "graphed": []}
+    try:
+        c0, r0, s0 = graphs.captures, graphs.replays, graphs.capture_seconds
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = counters()
+        first, first_wall = sync_wall(torch, request)
+        first_z = latents[-1]
+        counts = tuple(b - a for a, b in zip(start, counters()))
+        log(f"[{tag}] first graphed request (captures): wall {first_wall:.4f} s; graphs "
+            f"captured {graphs.captures - c0} in {graphs.capture_seconds - s0:.4f} s, replays "
+            f"{graphs.replays - r0}; (K1, K4) launches {counts}; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes; the cache entry holds "
+            f"{torch.cuda.memory_allocated() - held} bytes, the graphs' pool "
+            f"{pool_bytes(torch, jen1)} bytes")
+        if counts != want:
+            raise SystemExit(f"chip_smoke: {tag} first graphed request launched (K1, K4) "
+                             f"{counts}, want {want}")
+        for mode in GRAPH_ORDER[:2 * pairs]:
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES = im.LAUNCHES = 0
+            r0 = graphs.replays
+            ctx = disable_graphs() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                out, wall = sync_wall(torch, request)
+            counts, peak = counters(), torch.cuda.max_memory_allocated()
+            results[mode].append((wall, peak, out, latents[-1], graphs.replays - r0))
+            log(f"[{tag}] {mode} request: wall {wall:.4f} s; peak device memory {peak} "
+                f"bytes; (K1, K4) launches {counts}; replays {graphs.replays - r0}")
+            if counts != want:
+                raise SystemExit(f"chip_smoke: {tag} {mode} request launched (K1, K4) "
+                                 f"{counts}, want {want}")
+            if (mode == "graphed") != (graphs.replays > r0):
+                raise SystemExit(f"chip_smoke: {tag} {mode} request replayed "
+                                 f"{graphs.replays - r0} graphs")
+    finally:
+        del jen1.codec.decode_latent_chunked
+    _, _, ref_audio, ref_z, _ = results["eager"][0]
+    scale = float(np.abs(ref_z).max())
+    graphed = [(first, first_z)] + [(a, z) for _, _, a, z, _ in results["graphed"]]
+    worst_z = max(float(np.abs(z - ref_z).max()) for _, z in graphed)
+    worst_a = max(float(np.abs(a - ref_audio).max()) for a, _ in graphed)
+    equal = all(np.array_equal(a, ref_audio) and np.array_equal(z, ref_z)
+                for a, z in graphed + [(a, z) for _, _, a, z, _ in results["eager"][1:]])
+    log(f"[{tag}] graphed vs eager: max|latent diff| {worst_z:.3e} (bar {GRAPH_REL_BAR:g} x "
+        f"max|latent| {scale:.4e}), max|audio diff| {worst_a:.3e}; every request (the first "
+        f"graphed one included) bit-equal "
+        f"{equal}; walls eager {[round(r[0], 4) for r in results['eager']]}, graphed "
+        f"{[round(r[0], 4) for r in results['graphed']]}; peak eager "
+        f"{max(r[1] for r in results['eager'])}, graphed "
+        f"{max(r[1] for r in results['graphed'])} bytes")
+    if worst_z > GRAPH_REL_BAR * scale or not all(np.isfinite(a).all() for a, _ in graphed):
+        raise SystemExit(f"chip_smoke: {tag} graphed latents {worst_z:.3e} from the eager "
+                         f"ones, over {GRAPH_REL_BAR:g} x {scale:.4e}")
+    for mode in ("graphed", "eager"):
+        ctx = disable_graphs() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            if mode == "graphed":
+                profile_request()  # captures the key's graphs outside the trace
+            start = counters()
+            by_name = profile_window(torch, f"{tag}-profile", f"{mode} {PROFILE_STEPS}-step "
+                                     "request", profile_request)
+            counted = tuple(b - a for a, b in zip(start, counters()))
+        log_kernel_time(by_name, f"{tag}-profile", ("flash_fwd", "int8w_"), "K1 and K4",
+                        f"the {mode} request")
+        traced = trace_launches(by_name)
+        log(f"[{tag}-profile] {mode} request (K1, K4) launches: traced {traced}, counted "
+            f"{counted}, want {profile_want}")
+        if not traced == counted == profile_want:
+            raise SystemExit(f"chip_smoke: {tag} {mode} profiled request launched (K1, K4) "
+                             f"{traced} by its trace, {counted} by the counters, want "
+                             f"{profile_want}")
+    n = 1 + 2 * pairs
+    return want[0] * n, want[1] * n
+
+
+def phase_graphs(torch, jen1) -> int:
+    """Compiled sampling on the phase-main Jen1 (longform_config(), 30 s,
+    SLICE_STEPS steps): graph_case for the text_guided VDM request (B=1),
+    music_inpaint and music_cont (VDM; the continuation causal) and GDM DDIM
+    at encoder_reuse 2 (one pair each), and GenerationService at
+    B=SERVE_BATCH (a seeded request, lane 0 of its padded batch; its
+    profiled request a direct B=SERVE_BATCH generate()); then the service
+    under load, two keys submitted at once. Returns the counted K1
+    launches."""
+    import threading
+
+    import numpy as np
+
+    from jen1_tpu_torch.serve import GenerationService
+
+    sr = jen1.sample_rate
+    prompt, seed = SLICE_PROMPTS[0]
+    clip = synthetic_clip(np, TASKS_SEED, SLICE_SECONDS, sr)
+    base = dict(seed=seed, seconds=SLICE_SECONDS)
+
+    def requester(steps, **kw):
+        return lambda: jen1.generate(prompt, steps=steps, **base, **kw)
+
+    def whole(steps):
+        return 2 * steps
+
+    def reuse(steps):
+        return reuse_k1(steps, 2, final_full=True)
+
+    k1 = 0
+    # (tag, generate() arguments, K1 per request of so many steps, pairs):
+    # the tasks and encoder reuse run one pair each, to keep the script's time
+    cases = [
+        ("graphs-vdm", {}, whole, GRAPH_PAIRS),
+        ("graphs-inpaint", dict(task="music_inpaint", init_audio=clip,
+                                inpainting_scope=TASKS_SCOPE), whole, 1),
+        ("graphs-cont", dict(task="music_cont", init_audio=clip[: TASKS_CONT_SECONDS * sr]),
+         whole, 1),
+        ("graphs-reuse", dict(use_gdm=True, encoder_reuse=2), reuse, 1),
+    ]
+    for tag, kw, k1_of, pairs in cases:
+        k1 += graph_case(torch, tag, jen1, requester(SLICE_STEPS, **kw), (k1_of(SLICE_STEPS), 0),
+                         requester(PROFILE_STEPS, **kw), (k1_of(PROFILE_STEPS), 0), pairs)[0]
+
+    svc = GenerationService(jen1, max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                            default_seconds=SLICE_SECONDS, default_steps=SLICE_STEPS)
+    try:
+        k1 += graph_case(
+            torch, "graphs-serve", jen1,
+            lambda: svc.submit(SLICE_PROMPTS[1][0], seed=SERVE_SEED, timeout=900),
+            (2 * SLICE_STEPS, 0),
+            # profiled without the service's batching wait (max_wait_ms)
+            lambda: jen1.generate([SLICE_PROMPTS[1][0]] + [""] * (SERVE_BATCH - 1),
+                                  seed=SERVE_SEED, steps=PROFILE_STEPS, batch_size=SERVE_BATCH,
+                                  seconds=SLICE_SECONDS, use_gdm=True),
+            (2 * PROFILE_STEPS, 0))[0]
+        # under load: a second key captured while the first batch is fetched
+        jen1._sample_cache.clear()
+        graphs = jen1.graphs
+        c0, before = graphs.captures, dict(svc.stats)
+        start = counters()
+        results = [None] * (2 * SERVE_BATCH)
+
+        def worker(i):
+            steps = SLICE_STEPS if i < SERVE_BATCH else GRAPH_LOAD_STEPS
+            results[i] = svc.submit(TRAIN_PROMPTS[i % len(TRAIN_PROMPTS)], steps=steps,
+                                    timeout=900)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(results))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        span = time.perf_counter() - t0
+        launched = counters()[0] - start[0]
+        want = 2 * SLICE_STEPS + 2 * GRAPH_LOAD_STEPS
+        ok = all(r is not None and r.shape == (2, SLICE_SECONDS * sr) and np.isfinite(r).all()
+                 for r in results)
+        log(f"[graphs-serve] under load: {len(results)} requests ({SERVE_BATCH} at "
+            f"{SLICE_STEPS} steps, {SERVE_BATCH} at {GRAPH_LOAD_STEPS}) in {span:.4f} s; "
+            f"batches {svc.stats['batches'] - before['batches']}, graphs captured "
+            f"{graphs.captures - c0}, errors {svc.stats['errors'] - before['errors']}; K1 "
+            f"launches {launched} (want {want})")
+        if not ok or launched != want or svc.stats["errors"] != before["errors"]:
+            raise SystemExit("chip_smoke: the loaded service failed while capturing")
+        k1 += launched
+    finally:
+        svc.close()
+    return k1
 
 
 def train_remat(torch, cfg, trainer, state, batch) -> tuple:
@@ -3464,7 +3744,7 @@ def phase_snake(torch, main_kernels: int) -> tuple:
     prompt, seed = SLICE_PROMPTS[0]
     by_name = profile_window(torch, "snake-profile", f"{PROFILE_STEPS}-step request",
                              lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
-                                                   seconds=SLICE_SECONDS))
+                                                   seconds=SLICE_SECONDS), warm=True)
     kernels = sum(n for n, _ in by_name.values())
     log(f"[snake] device kernels in the profiled {PROFILE_STEPS}-step request: {kernels}, phase "
         f"main's {main_kernels}: {(kernels - main_kernels) / PROFILE_STEPS:.1f} more per "
@@ -3764,9 +4044,10 @@ def phase_small_mesh(torch) -> None:
 def phase_mesh(torch, jen1, main_outs, main_walls) -> tuple:
     """The mesh at full width, in an in-process NCCL group of one rank
     (destroyed at the end). Generation: phase main's Jen1 with `mesh =
-    make_mesh()` runs one warm-up and two timed 100-step 30 s B=1 requests
-    with main's prompts and seeds, in turns with the same requests without
-    the mesh (the group up): walls of both beside main's, max|diff| to
+    make_mesh()` runs one warm-up and one timed 100-step 30 s B=1 request
+    with main's first prompt and seed, in turns with the same request
+    without the mesh (the group up; eager, as the mesh's is): walls of both
+    beside main's, max|diff| to
     main's audio at the generate bar (2e-2 / 2e-3), K1 200 per request, all
     on the tensor-core route; a profiled 10-step mesh request; the
     all-gather's wall per call. Training: a trainer with fsdp=True over the
@@ -3794,6 +4075,7 @@ def phase_mesh(torch, jen1, main_outs, main_walls) -> tuple:
     from jen1_tpu_torch.parallel.mesh import to_local
     from jen1_tpu_torch.train.train import build_trainer
     from jen1_tpu_torch.train.trainer import step_generator
+    from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
 
     mesh = nccl_world1()
     try:
@@ -3804,13 +4086,16 @@ def phase_mesh(torch, jen1, main_outs, main_walls) -> tuple:
             f"({dist.get_backend()}); warm-up request {time.perf_counter() - t0:.3f} s")
         reset_launches()
         walls, k1 = {"mesh": [], "no mesh": []}, []
-        # in turns: no mesh, mesh, mesh, no mesh
-        for use_mesh, i in ((False, 0), (True, 0), (True, 1), (False, 1)):
+        # in turns: no mesh, mesh (one pair, to keep the script's time)
+        for use_mesh, i in ((False, 0), (True, 0)):
             (prompt, seed), ref = SLICE_PROMPTS[i], main_outs[i]
             jen1.mesh = mesh if use_mesh else None
             before = launch_counts()[0]
-            out, wall = sync_wall(torch, lambda: jen1.generate(
-                prompt, seed=seed, steps=SLICE_STEPS, batch_size=1, seconds=SLICE_SECONDS))
+            # Jen1.mesh samples eagerly: the requests without it too, so
+            # that the walls compare the mesh alone
+            with disable_graphs():
+                out, wall = sync_wall(torch, lambda: jen1.generate(
+                    prompt, seed=seed, steps=SLICE_STEPS, batch_size=1, seconds=SLICE_SECONDS))
             walls["mesh" if use_mesh else "no mesh"].append(round(wall, 4))
             k1.append(launch_counts()[0] - before)
             close = np.allclose(out, ref, rtol=2e-2, atol=2e-3)
@@ -3822,7 +4107,7 @@ def phase_mesh(torch, jen1, main_outs, main_walls) -> tuple:
         gen_k1, gen_mma = sum(k1), mma_counts()[0]
         log(f"[mesh] request walls: Jen1.mesh {walls['mesh']}, no mesh {walls['no mesh']}, "
             f"main's {main_walls} s")
-        if k1 != [2 * SLICE_STEPS] * 4 or gen_mma != gen_k1:
+        if k1 != [2 * SLICE_STEPS] * 2 or gen_mma != gen_k1:
             raise SystemExit(f"chip_smoke: K1 launches per request {k1} ({gen_mma} "
                              f"tensor-core), want {2 * SLICE_STEPS} each")
         jen1.mesh = mesh
@@ -4001,6 +4286,7 @@ def main() -> int:
     k1_generation += phase_bf16_weights(torch, jen1)
     k1_generation += phase_reuse(torch, jen1)
     k1_generation += phase_serve(torch, jen1)
+    k1_generation += phase_graphs(torch, jen1)
     k1_mesh, mesh_train = phase_mesh(torch, jen1, main_outs, main_walls)
     k1_generation += k1_mesh
     del jen1

@@ -33,6 +33,28 @@ caller fetches it (`.cpu()`), as `jen1_tpu_torch.serve` does in its
 completer threads. JAX's `rng_impl` and `compiler_options` are XLA knobs
 with no counterpart here.
 
+Compiled sampling. The VDM sampler and GDM DDIM (`sampler_mode` "scan" or
+"stepwise", `encoder_reuse` included) run as `diffusion` samplers on static
+buffers whose steps, on the card, are captured CUDA graphs
+(utils/cuda_graphs.py), replayed S times per request. `_sample_cache` holds
+one sampler per key, as the JAX package memoizes one compiled sampler per
+(sampler_mode, steps, use_gdm, causal, shape, encoder_reuse)
+(jen1_tpu/api/generation.py:609-650); the key adds what a capture bakes in:
+the task, the conditioning's shapes and dtypes, the compute dtype and the
+UNet's weights (each parameter's, buffer's and int8 kernel's address, dtype
+and shape). A weight load in place (`copy_`) is read by the next replay; a
+rebinding (`attach_qweights`, `clear_qweights`, `cast_weights_bf16`) makes a
+new key, and the entries of the old weights are dropped. The cache keeps
+the SAMPLE_CACHE_ENTRIES most recently used entries, since each holds its
+static buffers on the card, and a service sees as many keys as its
+clients send (seconds, steps). An entry serves
+one request at a time: a lock of the Jen1 holds the sampler from loading
+its buffers to copying out its result, so threads may call `generate`
+together. The graphs of one Jen1 share one memory pool (`self.graphs`). On the CPU, and inside
+`utils/cuda_graphs.py::disable_graphs()`, the same samplers run their steps
+eagerly. `sampler_mode="dpm++"`, DDPM, `generate_tracks` and `Jen1.mesh`
+(whose UNet call all-gathers over NCCL) run eagerly.
+
 LoRA. `lora_path` names a checkpoint directory of a LoRA run
 (`train/lora.py::LoRATrainer`); its adapter (the EMA one with
 `use_ema_params`, where the run kept one) is merged into the UNet's weights
@@ -60,7 +82,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
+import threading
 import time
 import warnings
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -80,16 +104,20 @@ from jen1_tpu_torch.ckpt.checkpoint import (
 from jen1_tpu_torch.config import Config
 from jen1_tpu_torch.data.audio_io import convert_audio, write_wav
 from jen1_tpu_torch.data.flac_write import write_flac
-from jen1_tpu_torch.diffusion.gdm import create_gaussian_diffusion
-from jen1_tpu_torch.diffusion.vdm import create_variational_diffusion
+from jen1_tpu_torch.diffusion.gdm import DDIMSampler, create_gaussian_diffusion
+from jen1_tpu_torch.diffusion.vdm import VDMSampler, create_variational_diffusion
 from jen1_tpu_torch.models.unet import unet_from_model_config
 from jen1_tpu_torch.ops.conv import fp32_precision
 from jen1_tpu_torch.ops.embeddings import rand_bool
 from jen1_tpu_torch.ops.initializers import init_module
+from jen1_tpu_torch.ops.int8_matmul import reads_qweights
 from jen1_tpu_torch.parallel import sp as seq
 from jen1_tpu_torch.parallel.mesh import axis_sizes, gather_rows
+from jen1_tpu_torch.utils.cuda_graphs import GraphSet
 
 TASKS = ("text_guided", "music_inpaint", "music_cont")
+# the samplers a Jen1 keeps (module docstring, "Compiled sampling")
+SAMPLE_CACHE_ENTRIES = 4
 REFERENCE_SUFFIXES = (".pth", ".pt", ".bin")
 # the FiLM mapping head runs in fp32 before the compute-dtype cast
 BF16_KEEP = ("to_time", "to_features", "to_mapping")
@@ -115,6 +143,36 @@ def cast_weights_bf16(model: torch.nn.Module) -> List[str]:
             p.data = p.data.to(torch.bfloat16)
             cast.append(name)
     return cast
+
+
+def weights_key(model: torch.nn.Module) -> tuple:
+    """What a captured graph bakes in of a model's weights: the name,
+    address, dtype and shape of every parameter, buffer and attached int8
+    kernel and scale."""
+    leaves = list(model.named_parameters()) + list(model.named_buffers())
+    for path, module in model.named_modules():
+        if reads_qweights(module) and module.kernel8 is not None:
+            leaves += [(f"{path}.kernel8", module.kernel8), (f"{path}.scale", module.scale)]
+    return tuple((name, t.data_ptr(), t.dtype, tuple(t.shape)) for name, t in leaves)
+
+
+def unet_at_dtype(model: torch.nn.Module, dtype: torch.dtype, x, t, **kw):
+    """The UNet at the compute dtype, fp32 at the sampler boundary; with
+    `return_encoder_cache` (output, cache), the cache at the compute
+    dtype."""
+    kw["embedding"] = kw["embedding"].to(dtype)
+    if kw.get("channels_list") is not None:
+        kw["channels_list"] = [c.to(dtype) for c in kw["channels_list"]]
+    out = model(x.to(dtype), t, **kw)
+    if kw.get("return_encoder_cache"):
+        return out[0].float(), out[1]
+    return out.float()
+
+
+def conditioning_key(conditioning: dict) -> tuple:
+    """The shapes and dtypes of a conditioning dict, None entries included."""
+    return tuple(sorted((k, None if v is None else (tuple(v.shape), v.dtype))
+                        for k, v in conditioning.items()))
 
 
 def resolve_device(device) -> torch.device:
@@ -229,6 +287,9 @@ class Jen1:
             self.config.diffusion_config.variational_diffusion
         )
         self._gdm_cache: Dict[int, object] = {}
+        # one sampler per key, least recently used first (module docstring,
+        # "Compiled sampling"); its graphs' memory pool and counts in `graphs`
+        self._new_sample_cache()
         # Phase walls of the last generate() call, in seconds. On the card
         # each phase ends with torch.cuda.synchronize(), so they are device
         # walls: prep / encode / conditioner / assemble / sampler / decode /
@@ -287,17 +348,48 @@ class Jen1:
         return self._gdm_cache[steps]
 
     def _model_fn(self, x, t, **kw):
-        """The UNet at the compute dtype, fp32 at the sampler boundary; with
-        `return_encoder_cache` (output, cache), the cache at the compute
-        dtype."""
-        dtype = self.compute_dtype
-        kw["embedding"] = kw["embedding"].to(dtype)
-        if kw.get("channels_list") is not None:
-            kw["channels_list"] = [c.to(dtype) for c in kw["channels_list"]]
-        out = self.model(x.to(dtype), t, **kw)
-        if kw.get("return_encoder_cache"):
-            return out[0].float(), out[1]
-        return out.float()
+        """`unet_at_dtype` of this Jen1's UNet and compute dtype."""
+        return unet_at_dtype(self.model, self.compute_dtype, x, t, **kw)
+
+    def _new_sample_cache(self) -> None:
+        self._sample_cache: Dict[tuple, object] = {}
+        self._sample_lock = threading.Lock()
+        self.graphs = GraphSet()
+
+    def __getstate__(self):
+        """A pickled Jen1 leaves its samplers, their graphs and its lock
+        behind; the copy starts an empty cache."""
+        state = dict(self.__dict__)
+        for name in ("_sample_cache", "_sample_lock", "graphs"):
+            del state[name]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._new_sample_cache()
+
+    def _sample(self, make, conditioning: dict, generator, init_data, *key) -> torch.Tensor:
+        """One request through the cached sampler of `key` plus what a
+        capture bakes in, made by `make(graphs)` on a miss, under the
+        sampler lock. A miss drops the entries of other weights, which can
+        no longer be replayed, and the least recently used ones beyond
+        SAMPLE_CACHE_ENTRIES."""
+        wkey = weights_key(self.model)
+        key = (*key, conditioning_key(conditioning), self.compute_dtype, wkey)
+        with self._sample_lock:
+            sampler = self._sample_cache.pop(key, None)
+            if sampler is None:
+                cache = self._sample_cache
+                same = [k for k in cache if k[-1] == wkey]
+                excess = max(0, len(same) + 1 - SAMPLE_CACHE_ENTRIES)
+                stale = [k for k in cache if k[-1] != wkey] + same[:excess]
+                if stale and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)  # no graph of theirs in flight
+                for k in stale:
+                    del cache[k]
+                sampler = make(self.graphs)
+            self._sample_cache[key] = sampler  # the most recently used last
+            return sampler.sample(conditioning, generator, init_data)
 
     def _dp_rows(self, batch_size: int) -> slice:
         """This rank's rows of a generate() batch under `self.mesh`."""
@@ -438,10 +530,15 @@ class Jen1:
 
         use_gdm=True samples with the GDM: DDIM over `steps` of the config's
         `steps` timesteps, or DDPM when `steps` equals them;
-        sampler_mode="dpm++" runs DPM-Solver++(2M) instead. "scan" and
-        "stepwise" are one loop here. encoder_reuse=k > 1 (GDM, "scan" or
-        "dpm++") runs the UNet's encoder on one step of each k-step block and
-        its decoder alone on the others (`diffusion/gdm.py::reuse_schedule`)."""
+        sampler_mode="dpm++" runs DPM-Solver++(2M) instead. The VDM sampler
+        and DDIM run as cached samplers whose steps are CUDA graphs on the
+        card (module docstring, "Compiled sampling"): "scan" replays the
+        step S times with the step index advanced on the device, "stepwise"
+        writes the index from the host before each replay; both give equal
+        results. DPM-Solver++, DDPM and a request under `self.mesh` run
+        eagerly. encoder_reuse=k > 1 (GDM, "scan" or "dpm++") runs the
+        UNet's encoder on one step of each k-step block and its decoder alone
+        on the others (`diffusion/gdm.py::reuse_schedule`)."""
         # the JAX package's checks (jen1_tpu/api/generation.py:403-411, 582-595)
         if output_dtype not in ("float32", "int16"):
             raise ValueError(f"output_dtype must be 'float32' or 'int16', got {output_dtype!r}")
@@ -531,17 +628,36 @@ class Jen1:
         mark("assemble")
 
         with fp32_precision():
-            if use_gdm:
-                latents = self._get_gdm(steps).sample(
+            encoder_reuse = int(encoder_reuse)
+            gdm = self._get_gdm(steps) if use_gdm else None
+            key = (sampler_mode, steps, use_gdm, causal, task, shape, encoder_reuse)
+            # a cached sampler holds the UNet, not this Jen1, which holds the
+            # cache: no reference cycle keeps a dropped Jen1's memory alive
+            unet = functools.partial(unet_at_dtype, self.model, self.compute_dtype)
+            if use_gdm and (sampler_mode == "dpm++" or not gdm.is_ddim_sampling
+                            or self.mesh is not None):
+                latents = gdm.sample(
                     model_fn, shape, conditioning, generator, device=dev,
                     causal=causal, mode=sampler_mode, init_data=init_data,
-                    encoder_reuse=int(encoder_reuse),
+                    encoder_reuse=encoder_reuse,
                 )
-            else:
+            elif use_gdm:
+                latents = self._sample(
+                    lambda graphs: DDIMSampler(
+                        gdm, unet, shape, conditioning, device=dev, causal=causal,
+                        mode=sampler_mode, encoder_reuse=encoder_reuse, graphs=graphs),
+                    conditioning, generator, init_data, *key)
+            elif self.mesh is not None:
                 latents = self.diffusion.p_sample_loop(
                     model_fn, shape, conditioning, generator, device=dev,
-                    step=steps, causal=causal, init_data=init_data,
+                    step=steps, causal=causal, init_data=init_data, mode=sampler_mode,
                 )
+            else:
+                latents = self._sample(
+                    lambda graphs: VDMSampler(
+                        self.diffusion, unet, shape, conditioning, device=dev, steps=steps,
+                        causal=causal, mode=sampler_mode, graphs=graphs),
+                    conditioning, generator, init_data, *key)
             mark("sampler")
             if not decode:
                 if on_device:

@@ -4,13 +4,25 @@ loss and the DDPM / DDIM samplers (port of jen1_tpu/diffusion/gdm.py).
 Same tables (float64 on the host, stored fp32 on the device), objectives
 ('noise' | 'x0' | 'v') and losses (l1 / l2) as the JAX package. The noise,
 the timesteps and the CFG dropout bits of a loss can be handed in, so a
-test can feed both packages the same draws. The samplers are Python loops
-(the JAX `lax.scan`s); every draw goes through `initial_noise` (x_T) or
-`step_noise` (each step's noise), which a test can replace. DDIM and
-DPM-Solver++ take `encoder_reuse=k` (Faster-Diffusion encoder propagation):
-the first step of every k-step block runs the whole UNet and keeps its
-encoder cache, the other k - 1 run the decoder against it
+test can feed both packages the same draws. Every draw goes through
+`initial_noise` (x_T) or `step_noise` (each step's noise), which a test can
+replace. DDIM and DPM-Solver++ take `encoder_reuse=k` (Faster-Diffusion
+encoder propagation): the first step of every k-step block runs the whole
+UNet and keeps its encoder cache, the other k - 1 run the decoder against it
 (`reuse_schedule`). All arrays are channels-last (B, L, C).
+
+DDIM runs as a `DDIMSampler`: static buffers (x_t, a copy of the
+conditioning, the encoder cache, one step's noise and CFG bits), a device
+table of the per-step scalars computed on the host as the JAX scan computes
+them, and the step as a `utils/cuda_graphs.py::StepProgram`, so that on the
+card it can run as a captured CUDA graph (JAX's compiled sampler; `Jen1`
+caches one per key). Before each step the host draws that step's noise
+(and CFG bits) from the request's generator into the static buffers, in the
+order the eager loop drew them: stream-ordered launches, no synchronize.
+mode "scan" advances the step index on the device inside the step (JAX's one
+program over the loop); "stepwise" has the host write it before each step
+(JAX's host loop over one compiled step). On the CPU the same step runs
+eagerly. DDPM and DPM-Solver++ stay eager Python loops.
 """
 
 from __future__ import annotations
@@ -53,6 +65,179 @@ def step_noise(x: torch.Tensor, generator: torch.Generator, index: int,
     """The noise of sampler step `index` (0 for the first step taken), of
     x's shape; U[0, 1) for DDPM under `uniform_noise_compat`."""
     return noise_like(x, generator, uniform)
+
+
+class StaticSampler:
+    """What the VDM and DDIM samplers share: static buffers of x_t (fp32),
+    of the conditioning (copied in per request) and of the step index, and
+    the loop over the steps' programs."""
+
+    def __init__(self, shape: Sequence[int], conditioning: Conditioning, *, steps: int,
+                 mode: str, device):
+        if mode not in ("scan", "stepwise"):
+            raise ValueError(f"mode must be 'scan' or 'stepwise', got {mode!r}")
+        self.shape = tuple(shape)
+        self.batch = self.shape[0]
+        self.steps = int(steps)
+        self.mode = mode
+        self.device = torch.device(device)
+        self.audio = torch.zeros(self.shape, dtype=torch.float32, device=self.device)
+        self.cond = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in conditioning.items()}
+        self.idx = torch.zeros((1,), dtype=torch.long, device=self.device)
+
+    def load(self, x_t: torch.Tensor, conditioning: Conditioning) -> None:
+        """Copy a request's x_t and conditioning into the static buffers and
+        reset the step index. The conditioning has the keys, shapes and
+        dtypes the sampler was made for (`Jen1` keys its cache on them)."""
+        for k, v in conditioning.items():
+            if isinstance(v, torch.Tensor):
+                self.cond[k].copy_(v)
+        self.audio.copy_(x_t)
+        self.idx.zero_()
+
+    def at_step(self, table: torch.Tensor) -> torch.Tensor:
+        """The current step's row of a per-step device table."""
+        return table.index_select(0, self.idx)[0]
+
+    def advance(self) -> None:
+        """The end of a step: "scan" moves the step index on the device."""
+        if self.mode == "scan":
+            self.idx.add_(1)
+
+    def run(self, steps, draw: Optional[Callable[[int], None]] = None,
+            trajectory: Optional[list] = None) -> torch.Tensor:
+        """Run steps[i], a (StepProgram, step function) pair, as step i;
+        "stepwise" writes i before each, and `draw(i)` fills the step's
+        static draws before it. With `trajectory`, appends x_t after every
+        step. Returns a copy of x_t."""
+        for i, (program, fn) in enumerate(steps):
+            if self.mode == "stepwise":
+                self.idx.fill_(i)
+            if draw is not None:
+                draw(i)
+            program(fn)
+            if trajectory is not None:
+                trajectory.append(self.audio.clone())
+        return self.audio.clone()
+
+
+def draw_cfg_bits(generator, batch: int, proba: float, device) -> torch.Tensor:
+    """One step's CFG-dropout bits (B, 1, 1), drawn by the UNet's own draw
+    (models/unet.py::rand_bool) as it draws them when it is given none."""
+    from jen1_tpu_torch.models import unet
+
+    return unet.rand_bool(generator, (batch, 1, 1), proba, device)
+
+
+def _clone_tree(tree):
+    """A copy of nested tuples of tensors, other leaves kept."""
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(t) for t in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in _tensor_leaves(t)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+class DDIMSampler(StaticSampler):
+    """DDIM (jen1_tpu/diffusion/gdm.py:285-438, 483-580) on static buffers
+    (module docstring). Per step the table holds sqrt(alpha_next), c and
+    sigma in fp32, computed in np.float32 as `ddim_sample` always has; the
+    last step (time_next < 0) selects x_start by a device flag, as JAX's
+    `ddim_update` does. encoder_reuse = k > 1 runs two programs as
+    `reuse_schedule` says: the whole forward, which writes the encoder cache
+    into static buffers, and the decoder-only step, which reads them. With
+    `graphs` (a utils/cuda_graphs.py::GraphSet) the steps run as CUDA graphs
+    on the card; `conditioning` gives the shapes of the static buffers."""
+
+    def __init__(self, gdm: "GaussianDiffusion", model_fn: ModelFn, shape: Sequence[int],
+                 conditioning: Conditioning, *, device, causal: bool = False,
+                 mode: str = "scan", encoder_reuse: int = 1, graphs=None):
+        from jen1_tpu_torch.utils.cuda_graphs import StepProgram
+
+        pairs = time_pairs(gdm.num_timesteps, gdm.sampling_timesteps)
+        super().__init__(shape, conditioning, steps=len(pairs), mode=mode, device=device)
+        self.gdm = gdm
+        self.model_fn = model_fn
+        self.causal = causal
+        acp = gdm.alphas_cumprod_host
+        eta = np.float32(gdm.ddim_sampling_eta)
+        one = np.float32(1.0)
+        rows = []
+        for time, time_next in pairs:
+            alpha, alpha_next = acp[time], acp[max(time_next, 0)]
+            sigma = eta * np.sqrt((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha))
+            c = np.sqrt(one - alpha_next - sigma * sigma)
+            rows.append((np.sqrt(alpha_next), c, sigma))
+        dev = self.device
+        self.times = torch.tensor([t for t, _ in pairs], dtype=torch.long, device=dev)
+        self.table = torch.from_numpy(np.array(rows, np.float32)).to(dev)
+        self.last = torch.tensor([tn < 0 for _, tn in pairs], dtype=torch.bool, device=dev)
+        # the current step's draws, filled by the host before the step
+        self.noise = torch.zeros(self.shape, dtype=torch.float32, device=dev)
+        self.bits = None
+        if gdm.dropout_during_sampling:
+            self.bits = torch.zeros((self.batch, 1, 1), dtype=torch.bool, device=dev)
+        self.cache = None  # the static encoder cache, made by the first whole step
+        # the whole step and, with encoder reuse, the decoder-only one
+        self.programs = tuple(StepProgram(dev, graphs) for _ in range(1 + (encoder_reuse > 1)))
+        self.whole = reuse_schedule(self.steps, encoder_reuse, True)
+
+    def _step(self, whole: Optional[bool]) -> None:
+        """One step; `whole` None runs the UNet without its encoder cache."""
+        gdm, audio = self.gdm, self.audio
+        time_cond = self.at_step(self.times).expand(self.batch).contiguous()
+        sqrt_alpha_next, c, sigma = self.at_step(self.table).unbind(0)
+        kw = dict(causal=self.causal, cfg_bits=self.bits)
+        if whole is None:
+            pred_noise, x_start = gdm.model_predictions(
+                self.model_fn, audio, time_cond, self.cond, clip_x_start=True, **kw)
+        else:
+            pred_noise, x_start, cache = gdm.cached_predictions(
+                self.model_fn, audio, time_cond, self.cond,
+                cache=None if whole else self.cache, **kw)
+            if whole:
+                self._store_cache(cache)
+        update = x_start * sqrt_alpha_next + c * pred_noise + sigma * self.noise
+        audio.copy_(torch.where(self.at_step(self.last), x_start, update))
+        self.advance()
+
+    def _store_cache(self, cache) -> None:
+        if self.cache is None:
+            self.cache = _clone_tree(cache)
+            return
+        for static, leaf in zip(_tensor_leaves(self.cache), _tensor_leaves(cache)):
+            static.copy_(leaf)
+
+    def sample(self, conditioning: Conditioning, generator: torch.Generator,
+               init_data: Optional[torch.Tensor] = None,
+               return_all_timesteps: bool = False) -> torch.Tensor:
+        """One request: x_T (+ init_data), then the steps, each after its
+        CFG bits (with dropout_during_sampling) and noise are drawn, in the
+        eager loop's order. `return_all_timesteps` stacks x_T and every
+        step's result (S + 1, ...)."""
+        x_t = with_init_data(initial_noise(self.shape, generator, self.device), init_data)
+        self.load(x_t, conditioning)
+        gdm = self.gdm
+
+        def draw(i: int) -> None:
+            if self.bits is not None:
+                self.bits.copy_(draw_cfg_bits(generator, self.batch, gdm.cfg_dropout_proba,
+                                              self.device))
+            self.noise.copy_(step_noise(self.audio, generator, i))
+
+        if len(self.programs) == 1:
+            steps = [(self.programs[0], lambda: self._step(None))] * self.steps
+        else:
+            steps = [(self.programs[0], lambda: self._step(True)) if whole
+                     else (self.programs[1], lambda: self._step(False)) for whole in self.whole]
+        trajectory = [x_t] if return_all_timesteps else None
+        out = self.run(steps, draw, trajectory)
+        return torch.stack(trajectory) if return_all_timesteps else out
 
 
 def reuse_schedule(steps: int, encoder_reuse: int, final_full: bool) -> list:
@@ -281,21 +466,23 @@ class GaussianDiffusion:
         return pred_noise, x_start
 
     def model_predictions(self, model_fn, x, t, conditioning, *, clip_x_start=False,
-                          causal=False, generator=None):
-        """(pred_noise, x_start) of one sampling call of the denoiser."""
+                          causal=False, generator=None, cfg_bits=None):
+        """(pred_noise, x_start) of one sampling call of the denoiser; with
+        dropout_during_sampling its CFG bits are `cfg_bits`, else drawn from
+        `generator`."""
         model_out = self._call_model(
             model_fn, x, t, conditioning, causal=causal,
-            dropout=self.dropout_during_sampling, generator=generator,
+            dropout=self.dropout_during_sampling, generator=generator, cfg_bits=cfg_bits,
         )
         return self._predictions_from_out(model_out, x, t, clip_x_start)
 
     def cached_predictions(self, model_fn, x, t, conditioning, *, cache, causal=False,
-                           generator=None):
+                           generator=None, cfg_bits=None):
         """(pred_noise, x_start clipped, encoder cache) of one sampling call
         that returns its encoder cache; decoder-only when `cache` is given."""
         model_out, cache = self._call_model(
             model_fn, x, t, conditioning, causal=causal,
-            dropout=self.dropout_during_sampling, generator=generator,
+            dropout=self.dropout_during_sampling, generator=generator, cfg_bits=cfg_bits,
             encoder_cache=cache, return_encoder_cache=True,
         )
         return (*self._predictions_from_out(model_out, x, t, True), cache)
@@ -313,49 +500,21 @@ class GaussianDiffusion:
         init_data: Optional[torch.Tensor] = None,
         return_all_timesteps: bool = False,
         encoder_reuse: int = 1,
+        mode: str = "scan",
     ) -> torch.Tensor:
         """DDIM (gdm.py:285-438) over `sampling_timesteps` steps, x_start
-        clipped to [-1, 1]. The step's scalars are fp32, computed on the
-        host as the JAX scan computes them; each step draws its noise (used
-        where eta > 0). `return_all_timesteps` stacks x_T and every step's
-        result (S + 1, ...). encoder_reuse > 1 runs the UNet's decoder alone
-        on the steps `reuse_schedule(S, k, final_full=True)` marks, against
-        the cache of the last whole forward."""
+        clipped to [-1, 1], as an eager `DDIMSampler`. The step's scalars
+        are fp32, computed on the host as the JAX scan computes them; each
+        step draws its noise (used where eta > 0). `return_all_timesteps`
+        stacks x_T and every step's result (S + 1, ...). encoder_reuse > 1
+        runs the UNet's decoder alone on the steps `reuse_schedule(S, k,
+        final_full=True)` marks, against the cache of the last whole
+        forward."""
         if encoder_reuse > 1 and return_all_timesteps:
             raise ValueError("encoder_reuse>1 does not support return_all_timesteps")
-        batch = shape[0]
-        acp = self.alphas_cumprod_host
-        eta = np.float32(self.ddim_sampling_eta)
-        one = np.float32(1.0)
-        audio = with_init_data(initial_noise(shape, generator, device), init_data)
-        trajectory = [audio]
-        pairs = time_pairs(self.num_timesteps, self.sampling_timesteps)
-        whole = reuse_schedule(len(pairs), encoder_reuse, final_full=True)
-        cache = None
-        for i, (time, time_next) in enumerate(pairs):
-            time_cond = torch.full((batch,), time, dtype=torch.long, device=device)
-            if encoder_reuse > 1:
-                pred_noise, x_start, cache = self.cached_predictions(
-                    model_fn, audio, time_cond, conditioning,
-                    cache=None if whole[i] else cache, causal=causal, generator=generator,
-                )
-            else:
-                pred_noise, x_start = self.model_predictions(
-                    model_fn, audio, time_cond, conditioning, clip_x_start=True,
-                    causal=causal, generator=generator,
-                )
-            alpha, alpha_next = acp[time], acp[max(time_next, 0)]
-            sigma = eta * np.sqrt((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha))
-            c = np.sqrt(one - alpha_next - sigma * sigma)
-            noise = step_noise(audio, generator, i)
-            if time_next < 0:
-                audio = x_start
-            else:
-                audio = (x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
-                         + float(sigma) * noise)
-            if return_all_timesteps:
-                trajectory.append(audio)
-        return torch.stack(trajectory) if return_all_timesteps else audio
+        sampler = DDIMSampler(self, model_fn, shape, conditioning, device=device, causal=causal,
+                              mode=mode, encoder_reuse=encoder_reuse)
+        return sampler.sample(conditioning, generator, init_data, return_all_timesteps)
 
     @torch.no_grad()
     def p_sample_loop(
@@ -405,11 +564,12 @@ class GaussianDiffusion:
         return_all_timesteps: bool = False,
     ) -> torch.Tensor:
         """DDIM iff sampling_timesteps < num_timesteps, else DDPM
-        (gdm.py:581-666). mode 'scan' and 'stepwise' are one Python loop
-        here (the JAX package's two are numerically identical, :498-499);
-        'dpm++' runs DPM-Solver++(2M) (`diffusion/dpm_solver.py`). Every
-        sampler starts from x_T + init_data when it is given.
-        encoder_reuse > 1 needs DDIM ('scan') or 'dpm++', as in JAX."""
+        (gdm.py:581-666), eagerly. DDIM's 'scan' and 'stepwise' are its two
+        step-index modes (`DDIMSampler`; the results are equal, as the JAX
+        package's two are, :498-499); 'dpm++' runs DPM-Solver++(2M)
+        (`diffusion/dpm_solver.py`). Every sampler starts from x_T +
+        init_data when it is given. encoder_reuse > 1 needs DDIM ('scan')
+        or 'dpm++', as in JAX."""
         if mode not in ("scan", "stepwise", "dpm++"):
             raise ValueError(f"mode must be 'scan', 'stepwise' or 'dpm++', got {mode!r}")
         if encoder_reuse > 1:
@@ -436,7 +596,7 @@ class GaussianDiffusion:
         if self.is_ddim_sampling:
             return self.ddim_sample(model_fn, shape, conditioning, generator,
                                     return_all_timesteps=return_all_timesteps,
-                                    encoder_reuse=encoder_reuse, **common)
+                                    encoder_reuse=encoder_reuse, mode=mode, **common)
         return self.p_sample_loop(model_fn, shape, conditioning, generator,
                                   return_all_timesteps=return_all_timesteps, **common)
 

@@ -2,11 +2,17 @@
 (port of jen1_tpu/diffusion/vdm.py).
 
 alpha(t) = cos(t pi/2), sigma(t) = sin(t pi/2); the deterministic v-space
-sampler walks linspace(1 -> 0, step + 1) as a Python loop. The training
-loss (vdm.py:104-139) draws t ~ U[0, 1) per example; its times, noise and
-CFG dropout bits can be handed in instead. With `dropout_during_sampling`
-the sampler's UNet calls keep the training CFG dropout, each step drawing
-its bits from the request's generator (vdm.py:48, 179).
+sampler walks linspace(1 -> 0, step + 1) as a `VDMSampler`: static buffers
+and a device table of each step's (t, alpha, sigma, alpha_next,
+sigma_next), computed on the host in fp32, read through the step index
+("scan": advanced on the device; "stepwise": written by the host), so that
+on the card the step can run as a captured CUDA graph (`gdm.StaticSampler`,
+utils/cuda_graphs.py). The training loss (vdm.py:104-139) draws t ~ U[0, 1)
+per example; its times, noise and CFG dropout bits can be handed in
+instead. With `dropout_during_sampling` the sampler's UNet calls keep the
+training CFG dropout, each step's bits drawn from the request's generator
+by the host into a static buffer before the step, in the order the eager
+loop drew them (vdm.py:48, 179).
 """
 
 from __future__ import annotations
@@ -17,7 +23,12 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from jen1_tpu_torch.diffusion.gdm import noise_like, with_init_data
+from jen1_tpu_torch.diffusion.gdm import (
+    StaticSampler,
+    draw_cfg_bits,
+    noise_like,
+    with_init_data,
+)
 
 ModelFn = Callable[..., torch.Tensor]
 Conditioning = Dict[str, Any]
@@ -133,27 +144,68 @@ class VDM:
         step: int = 100,
         causal: bool = False,
         init_data: Optional[torch.Tensor] = None,
+        mode: str = "scan",
     ) -> torch.Tensor:
         """Deterministic v-space sampler from x_T = `initial_noise(...)`, plus
         `init_data` (the encoded init audio) in fp32 when given
-        (jen1_tpu/diffusion/vdm.py:157-160)."""
-        batch = shape[0]
-        audio = with_init_data(initial_noise(shape, generator, device), init_data)
-        steps = np.linspace(1.0, 0.0, step + 1, dtype=np.float32)
+        (jen1_tpu/diffusion/vdm.py:157-160), as an eager `VDMSampler`."""
+        sampler = VDMSampler(self, model_fn, shape, conditioning, device=device, steps=step,
+                             causal=causal, mode=mode)
+        return sampler.sample(conditioning, generator, init_data)
+
+
+class VDMSampler(StaticSampler):
+    """The v-space sampler (jen1_tpu/diffusion/vdm.py:143-252) on static
+    buffers (module docstring). With `graphs` (a
+    utils/cuda_graphs.py::GraphSet) its step runs as a CUDA graph on the
+    card; `conditioning` gives the shapes of the static buffers."""
+
+    def __init__(self, vdm: VDM, model_fn: ModelFn, shape: Sequence[int],
+                 conditioning: Conditioning, *, device, steps: int, causal: bool = False,
+                 mode: str = "scan", graphs=None):
+        from jen1_tpu_torch.utils.cuda_graphs import StepProgram
+
+        super().__init__(shape, conditioning, steps=steps, mode=mode, device=device)
+        self.vdm = vdm
+        self.model_fn = model_fn
+        self.causal = causal
+        ts = np.linspace(1.0, 0.0, steps + 1, dtype=np.float32)
+        rows = [(t, *alpha_sigma(t), *alpha_sigma(t_next)) for t, t_next in zip(ts[:-1], ts[1:])]
+        self.table = torch.from_numpy(np.array(rows, np.float32)).to(self.device)
+        self.bits = None
+        if vdm.dropout_during_sampling:
+            # the current step's bits, drawn by the host before the step
+            self.bits = torch.zeros((self.batch, 1, 1), dtype=torch.bool, device=self.device)
+        self.programs = (StepProgram(self.device, graphs),)
+
+    def _step(self) -> None:
+        t, alpha, sigma, alpha_next, sigma_next = self.at_step(self.table).unbind(0)
         dropout = {}
-        if self.dropout_during_sampling:
-            dropout = dict(embedding_mask_proba=self.cfg_dropout_proba, generator=generator)
-        for t, t_next in zip(steps[:-1], steps[1:]):
-            time_cond = torch.full((batch,), float(t), dtype=torch.float32, device=device)
-            v_pred = self._call_model(
-                model_fn, audio, time_cond, conditioning, causal=causal, **dropout
-            ).float()
-            alpha, sigma = (float(a) for a in alpha_sigma(t))
-            alpha_next, sigma_next = (float(a) for a in alpha_sigma(t_next))
-            x_pred = alpha * audio - sigma * v_pred
-            noise_pred = sigma * audio + alpha * v_pred
-            audio = alpha_next * x_pred + sigma_next * noise_pred
-        return audio
+        if self.bits is not None:
+            dropout = dict(embedding_mask_proba=self.vdm.cfg_dropout_proba,
+                           embedding_mask_bits=self.bits)
+        audio = self.audio
+        v_pred = self.vdm._call_model(
+            self.model_fn, audio, t.expand(self.batch).contiguous(), self.cond,
+            causal=self.causal, **dropout,
+        ).float()
+        x_pred = alpha * audio - sigma * v_pred
+        noise_pred = sigma * audio + alpha * v_pred
+        audio.copy_(alpha_next * x_pred + sigma_next * noise_pred)
+        self.advance()
+
+    def sample(self, conditioning: Conditioning, generator: torch.Generator,
+               init_data: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One request: x_T (+ init_data), then the steps, each after its
+        CFG bits are drawn with dropout_during_sampling."""
+        x_t = with_init_data(initial_noise(self.shape, generator, self.device), init_data)
+        self.load(x_t, conditioning)
+        draw = None
+        if self.bits is not None:
+            def draw(i: int) -> None:
+                self.bits.copy_(draw_cfg_bits(generator, self.batch,
+                                              self.vdm.cfg_dropout_proba, self.device))
+        return self.run([(self.programs[0], self._step)] * self.steps, draw)
 
 
 def create_variational_diffusion(vdm_config) -> VDM:

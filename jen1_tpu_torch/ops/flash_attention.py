@@ -36,7 +36,12 @@ import torch.nn.functional as F
 
 # Launches of each CUDA kernel, incremented by its wrapper only; the _MMA
 # counts are the launches of K1, K2 and K3 that took the tensor-core route,
-# LAUNCHES_CAUSAL the launches of K1 with the causal mask.
+# LAUNCHES_CAUSAL the launches of K1 with the causal mask. Under a CUDA graph
+# the wrapper runs once, at capture: utils/cuda_graphs.py takes that back and
+# adds the capture's counts at every replay, so they stay launches on the
+# card.
+COUNTERS = ("LAUNCHES", "LAUNCHES_MMA", "LAUNCHES_CAUSAL", "LAUNCHES_DQ", "LAUNCHES_DQ_MMA",
+            "LAUNCHES_DKV", "LAUNCHES_DKV_MMA")
 LAUNCHES = 0
 LAUNCHES_MMA = 0
 LAUNCHES_CAUSAL = 0

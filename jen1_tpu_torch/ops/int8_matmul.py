@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 # Calls of `matmul_int8w_cuda` (each launches K4 once), incremented by the
-# wrapper only.
+# wrapper only; under a CUDA graph, by utils/cuda_graphs.py at every replay.
+COUNTERS = ("LAUNCHES",)
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

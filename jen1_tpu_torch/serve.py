@@ -14,6 +14,14 @@ jen1_tpu/serve.py).
     `generate(..., output_transport="device")` under the device lock and
     hands the tensor to a completer thread, which fetches it (`.cpu()`) and
     answers the requests while the dispatcher forms the next batch.
+  * Compiled sampling: every (seconds, steps, use_gdm) key has one padded
+    batch shape, so it is one entry of the Jen1's sample cache: its sampler
+    steps are captured as CUDA graphs at the key's first batch and replayed
+    after (`api/generation.py`, utils/cuda_graphs.py), under the device
+    lock. The cache keeps the SAMPLE_CACHE_ENTRIES most recently used keys,
+    so clients that send many (seconds, steps) pairs cost captures, not
+    device memory. Captures use the thread-local capture mode, so a completer may
+    copy a result to the host while the dispatcher captures.
   * HTTP (stdlib ThreadingHTTPServer): POST /generate with a JSON body
     {"prompt": str, "seconds": float, "steps": int, "seed": int,
     "use_gdm": bool, "format": "wav"|"npy"} returns audio/wav (16-bit PCM)
@@ -126,8 +134,9 @@ class GenerationService:
         self.default_seconds = default_seconds
         self.default_steps = default_steps
         self.max_queue = int(max_queue)
-        # 'scan' and 'stepwise' are one DDIM loop here; 'dpm++' runs
-        # DPM-Solver++(2M)
+        # 'scan' replays each DDIM step's CUDA graph with the step index
+        # advanced on the card, 'stepwise' writes it from the host before
+        # each replay (equal results); 'dpm++' runs DPM-Solver++(2M) eagerly
         self.sampler_mode = str(sampler_mode)
         # GDM DDIM by default, as the JAX service; per-request use_gdm wins
         self.default_use_gdm = bool(default_use_gdm)

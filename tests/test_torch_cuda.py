@@ -17,6 +17,9 @@ kernels are held against their plain versions at the bars of chip_smoke.py:
     1e-2*|ref| in bf16 (one bf16 rounding step of each side's fp32 result).
   * K4: elementwise within 1e-4*max|ref|: the kernel and the plain version
     sum the same exact products (bf16 x int8 fits an fp32) in other orders.
+  * Samplers as CUDA graphs (utils/cuda_graphs.py): a graphed request
+    against the same request under disable_graphs() within 1e-5 of
+    max|latent| (the same kernels on the same inputs; equal bits expected).
 """
 
 import pytest
@@ -732,3 +735,61 @@ def test_nccl_world1_fsdp_train_step_matches_plain(cuda_device):
         assert all(torch.equal(back[k].cpu(), saved[k].cpu()) for k in saved)
     finally:
         dist.destroy_process_group()
+
+
+GRAPH_REL_BAR = 1e-5  # of max|latent|: graphed against eager on the card
+
+
+@pytest.mark.parametrize("mode", ["scan", "stepwise"])
+@pytest.mark.parametrize("use_gdm", [False, True])
+def test_graphed_generate_matches_eager(cuda_device, use_gdm, mode):
+    """A tiny generate() (13 s: the flash path) runs its steps as captured
+    graphs: the capturing request, a replayed one and the same request under
+    disable_graphs() give one latent; one graph per program, replayed once
+    per step after the first."""
+    from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
+
+    jen1 = tiny_jen1s()["cuda"]
+    kw = dict(seed=5, steps=4, seconds=13, use_gdm=use_gdm, sampler_mode=mode, decode=False)
+    first = jen1.generate("a beautiful song", **kw)
+    again = jen1.generate("a beautiful song", **kw)
+    with disable_graphs():
+        eager = jen1.generate("a beautiful song", **kw)
+    assert jen1.graphs.captures == 1 and jen1.graphs.replays == 3 + 4
+    bar = GRAPH_REL_BAR * float(abs(eager).max())
+    for out in (first, again):
+        assert out.shape == eager.shape and float(abs(out - eager).max()) <= bar
+
+
+def test_flash_launches_counted_by_replay(cuda_device):
+    """K1's counters count launches on the card: 2 per UNet forward of the
+    tiny Jen1 at 13 s, whether the step ran eagerly, was captured (the
+    capture's counts are taken back) or was replayed."""
+    jen1 = tiny_jen1s()["cuda"]
+    kw = dict(seed=5, steps=4, seconds=13, decode=False)
+    for _ in range(2):
+        before = (fa.LAUNCHES, fa.LAUNCHES_MMA)
+        jen1.generate("a beautiful song", **kw)
+        assert (fa.LAUNCHES - before[0], fa.LAUNCHES_MMA - before[1]) == (8, 0)
+    assert jen1.graphs.captures == 1 and jen1.graphs.replays == 3 + 4
+
+
+def test_capture_error_propagates(cuda_device, monkeypatch):
+    """A step that synchronizes with the host runs in its eager warm-up but
+    cannot be captured: generate() raises, returns no eager result, and
+    keeps no graph."""
+    from jen1_tpu_torch.diffusion import vdm
+
+    jen1 = tiny_jen1s()["cuda"]
+    call = vdm.VDM._call_model
+
+    def syncing(self, *args, **kw):
+        out = call(self, *args, **kw)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(vdm.VDM, "_call_model", syncing)
+    with pytest.raises(RuntimeError):
+        jen1.generate("a beautiful song", seed=5, steps=2, seconds=13, decode=False)
+    assert jen1.graphs.captures == 0
+    assert all(p.graph is None for s in jen1._sample_cache.values() for p in s.programs)

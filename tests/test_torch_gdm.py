@@ -96,7 +96,9 @@ def test_trajectory_matches_jax(unets, monkeypatch, name, overrides, sampling, m
 
 
 def test_stepwise_is_the_scan_loop(unets):
-    """'stepwise' and 'scan' are one loop in the port: equal results."""
+    """DDIM's 'stepwise' (the host writes each step's index into the
+    sampler's static input) and 'scan' (the step advances it on the device)
+    give equal results, as the JAX package's two modes do."""
     _, _, pmodel, cond, shape = unets
     _, pconf = configs(dict(steps=8))
     pdiff = port_gdm.create_gaussian_diffusion(pconf, sampling_steps=2)
