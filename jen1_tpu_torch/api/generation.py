@@ -30,8 +30,10 @@ the cached encoder features (Faster-Diffusion encoder propagation).
 `output_transport="device"` returns the result as a tensor on the model's
 device, with no copy to the host and no synchronize after the decode: the
 caller fetches it (`.cpu()`), as `jen1_tpu_torch.serve` does in its
-completer threads. JAX's `rng_impl` and `compiler_options` are XLA knobs
-with no counterpart here.
+completer threads. On the card, `last_decode_events` then holds two CUDA
+events around the decode (and the int16 conversion), which time it on the
+device once the result is fetched. JAX's `rng_impl` and `compiler_options`
+are XLA knobs with no counterpart here.
 
 Compiled sampling. The VDM sampler and GDM DDIM (`sampler_mode` "scan" or
 "stepwise", `encoder_reuse` included) run as `diffusion` samplers on static
@@ -113,6 +115,7 @@ from jen1_tpu_torch.ops.initializers import init_module
 from jen1_tpu_torch.ops.int8_matmul import reads_qweights
 from jen1_tpu_torch.parallel import sp as seq
 from jen1_tpu_torch.parallel.mesh import axis_sizes, gather_rows
+from jen1_tpu_torch.utils import profiling
 from jen1_tpu_torch.utils.cuda_graphs import GraphSet
 
 TASKS = ("text_guided", "music_inpaint", "music_cont")
@@ -293,8 +296,12 @@ class Jen1:
         # Phase walls of the last generate() call, in seconds. On the card
         # each phase ends with torch.cuda.synchronize(), so they are device
         # walls: prep / encode / conditioner / assemble / sampler / decode /
-        # fetch.
+        # fetch. Each is also a span `gen.<phase>` (utils/profiling.annotate):
+        # in its ring, and a region of a profiler's trace.
         self.last_timings: Dict[str, float] = {}
+        # (start, end) CUDA events around the last generate()'s decode under
+        # output_transport="device" on the card, else None
+        self.last_decode_events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
         # a DeviceMesh (parallel/mesh.py) whose dp and sp axes shard generate()
         self.mesh = None
 
@@ -362,6 +369,7 @@ class Jen1:
         state = dict(self.__dict__)
         for name in ("_sample_cache", "_sample_lock", "graphs"):
             del state[name]
+        state["last_decode_events"] = None
         return state
 
     def __setstate__(self, state):
@@ -560,19 +568,26 @@ class Jen1:
         if task not in TASKS:
             raise ValueError(f"unknown task: {task}")
         on_device = output_transport == "device"
+        fetch = None if on_device else "fetch"  # the last phase: the copy to the host
 
         dev = self.device
         timings: Dict[str, float] = {}
         self.last_timings = timings
+        self.last_decode_events = None
+        # the phase under way, as a span: prep first
+        region = profiling.annotate("gen.prep").__enter__()
         t_prev = time.perf_counter()
 
-        def mark(phase: str, sync: bool = True) -> None:
-            nonlocal t_prev
+        def mark(phase: str, then: Optional[str], sync: bool = True) -> None:
+            """End `phase` (its timing and its span) and begin `then`."""
+            nonlocal t_prev, region
             if sync and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            region.__exit__(None, None, None)
             now = time.perf_counter()
             timings[phase] = timings.get(phase, 0.0) + (now - t_prev)
             t_prev = now
+            region = profiling.annotate(f"gen.{then}").__enter__() if then else None
 
         seed = seed if seed != -1 else int(np.random.randint(0, 2**31 - 1))
         cfg = self.codec.config
@@ -594,7 +609,7 @@ class Jen1:
             ])
         mask, init_audio, causal = self._task_inputs(
             task, init_audio, sample_length, seconds, batch_size, inpainting_scope)
-        mark("prep")
+        mark("prep", "encode")
 
         if no_init and task == "text_guided":
             # the text_guided mask zeroes the whole clip, so the masked input
@@ -603,13 +618,13 @@ class Jen1:
             init_emb = torch.zeros((batch_size, frames, cfg.dimension), device=dev)
         else:
             init_emb = self._encoder(encode_mode)(torch.from_numpy(init_audio).to(dev))
-        mark("encode")
+        mark("encode", "conditioner")
         latent_len = init_emb.shape[1]
         latent_mask = torch.from_numpy(self.latent_mask(mask, latent_len)).to(dev)
         masked_emb = init_emb * latent_mask
 
         cond = dict(self.conditioner([{"prompt": p} for p in prompts]))
-        mark("conditioner")
+        mark("conditioner", "assemble")
         cond["masked_input"] = masked_emb.to(self.compute_dtype)
         cond["mask"] = latent_mask.to(self.compute_dtype)
         conditioning = assemble_conditioning(
@@ -625,7 +640,7 @@ class Jen1:
         model_fn, rows = self._model_fn, None
         if self.mesh is not None:
             model_fn, rows = self._mesh_model_fn, self._dp_rows(batch_size)
-        mark("assemble")
+        mark("assemble", "sampler")
 
         with fp32_precision():
             encoder_reuse = int(encoder_reuse)
@@ -658,12 +673,17 @@ class Jen1:
                         self.diffusion, unet, shape, conditioning, device=dev, steps=steps,
                         causal=causal, mode=sampler_mode, graphs=graphs),
                     conditioning, generator, init_data, *key)
-            mark("sampler")
+            mark("sampler", "decode" if decode else fetch)
+            events = None
+            if on_device and decode and dev.type == "cuda":
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
             if not decode:
                 if on_device:
                     return latents.transpose(1, 2)  # (B, D, F)
                 out = latents.cpu().numpy().transpose(0, 2, 1)  # (B, D, F)
-                mark("fetch")
+                mark("fetch", None)
                 return out
             if rows is not None:
                 latents = latents[rows]
@@ -676,11 +696,14 @@ class Jen1:
                 audio = gather_rows(audio, self.mesh)
         if output_dtype == "int16":
             audio = (audio.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-        mark("decode", sync=not on_device)
+        if events is not None:
+            events[1].record()
+            self.last_decode_events = events
+        mark("decode", fetch, sync=not on_device)
         if on_device:
             return audio.transpose(1, 2)  # (B, ch, T), still being computed
         out = audio.cpu().numpy().transpose(0, 2, 1)  # (B, ch, T)
-        mark("fetch")
+        mark("fetch", None)
         return out
 
     def generate_long(self, prompt, total_seconds: float, **kw) -> np.ndarray:

@@ -1,5 +1,5 @@
 """Datasets, split and batching loader (port of jen1_tpu/data/dataset.py).
-numpy and the port's audio I/O.
+numpy, the port's audio I/O and its span ring (utils/profiling.py).
 
   MusicDataset    - audio files under <dataset_dir>/audios (WAV, FLAC, MP3,
                     OGG, AAC/M4A) cut into sample_duration windows of the
@@ -11,7 +11,8 @@ numpy and the port's audio I/O.
   train_test_split- index-level random split.
   make_dataloader - shuffling, batching iterator with drop_last, optional
                     epochs, skip_batches for a deterministic resume and a
-                    background thread that prefetches batches.
+                    background thread that prefetches batches (the wait
+                    for its next batch is a span `data.wait`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from jen1_tpu_torch.data.audio_io import convert_audio, get_duration_sec, load_audio
+from jen1_tpu_torch.utils.profiling import annotate
 
 AUDIO_EXTS = (".wav", ".mp3", ".flac", ".ogg", ".oga", ".aac", ".m4a", ".mp4")
 
@@ -237,7 +239,8 @@ def make_dataloader(
     t.start()
     try:
         while True:
-            b = q.get()
+            with annotate("data.wait"):
+                b = q.get()
             if b is sentinel:
                 break
             yield b

@@ -32,6 +32,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from jen1_tpu_torch.utils.profiling import annotate
+
 ModelFn = Callable[..., torch.Tensor]
 Conditioning = Dict[str, Any]
 
@@ -110,13 +112,16 @@ class StaticSampler:
         """Run steps[i], a (StepProgram, step function) pair, as step i;
         "stepwise" writes i before each, and `draw(i)` fills the step's
         static draws before it. With `trajectory`, appends x_t after every
-        step. Returns a copy of x_t."""
+        step. Returns a copy of x_t. Each step is a span `sampler.step`
+        keyed by i (utils/profiling.py), around its launch, not inside a
+        capture."""
         for i, (program, fn) in enumerate(steps):
-            if self.mode == "stepwise":
-                self.idx.fill_(i)
-            if draw is not None:
-                draw(i)
-            program(fn)
+            with annotate("sampler.step", key=i):
+                if self.mode == "stepwise":
+                    self.idx.fill_(i)
+                if draw is not None:
+                    draw(i)
+                program(fn)
             if trajectory is not None:
                 trajectory.append(self.audio.clone())
         return self.audio.clone()

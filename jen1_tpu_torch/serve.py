@@ -32,6 +32,13 @@ jen1_tpu/serve.py).
     raises ServiceOverloaded and HTTP answers 503 with a Retry-After
     estimated from the EWMA of batch walls. `close()` drains: new work is
     refused, admitted work completes, then the threads stop.
+  * Tracing: `stats` counts and `phase_totals` sums seconds (each
+    request's queue wait from submit to its batch's formation among them);
+    /healthz shows both. Spans go to `utils/profiling`'s ring:
+    `serve.request` (submit to answer, keyed by the request's uid),
+    `serve.await_request` (the dispatcher's poll of an empty queue), and
+    keyed by the batch's number `serve.collect` (the co-batching window),
+    `serve.dispatch` (generate() under the device lock), `serve.fetch`.
   * Seeds: a request with an explicit seed is never co-batched; it runs as
     lane 0 of its own padded batch, so seed=N reproduces
     `generate(prompts padded to max_batch, seed=N)[0]`. Default-seed
@@ -56,10 +63,12 @@ import wave
 from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from jen1_tpu_torch.utils.profiling import annotate
 
 
 class ServiceOverloaded(RuntimeError):
@@ -93,6 +102,9 @@ class _Request:
     cancelled: bool = False
     # _finish() ran (guarded by _depth_lock): the depth slot is released once
     finished: bool = False
+    # time.time_ns() at submit() and when its batch was formed
+    t_submit_ns: int = 0
+    t_batched_ns: int = 0
 
     @property
     def batch_key(self):
@@ -100,6 +112,20 @@ class _Request:
         # of its own padded batch (module docstring, "Seeds")
         seed_key = None if self.seed == -1 else self.uid
         return (float(self.seconds), int(self.steps), bool(self.use_gdm), seed_key)
+
+
+@dataclass
+class _Dispatched:
+    """A batch handed from the dispatcher to a completer: its audio, still
+    being computed on the device, and what the completer times."""
+
+    batch: List[_Request]
+    number: int
+    audio: Any
+    t_dispatch: float  # time.time() before generate(), for the batch-wall EWMA
+    t_returned: float  # time.perf_counter() when generate() returned
+    # the Jen1's (start, end) CUDA events around the decode, or None
+    decode_events: Optional[tuple]
 
 
 def to_host(audio) -> np.ndarray:
@@ -145,7 +171,7 @@ class GenerationService:
         self.output_dtype = str(output_dtype)
         self.stats: Dict[str, Any] = {
             "requests": 0, "batches": 0, "padded_lanes": 0, "errors": 0,
-            "rejected": 0, "streams": 0, "busy": False,
+            "rejected": 0, "streams": 0, "busy": False, "batched_requests": 0,
         }
         # guards every read-modify-write of `stats` and of the batch-wall
         # EWMA: completers, the dispatcher and submitters update them at once
@@ -168,9 +194,14 @@ class GenerationService:
         # at most `pipeline_depth` dispatched batches wait for a completer,
         # each holding its audio on the device until it is fetched
         self._inflight: "queue.Queue" = queue.Queue(maxsize=max(1, int(pipeline_depth)))
-        # host-side phase seconds summed over all batches: generate()'s
-        # last_timings phases, 'collect' (batch formation) and 'fetch'
+        # seconds summed over all batches: generate()'s last_timings phases,
+        # 'collect' (batch formation), 'fetch', 'handoff' (generate()'s return
+        # to a completer taking the batch), 'decode_device' (the decode's
+        # device time, where the Jen1 times it with events), and over the
+        # batched requests (stats["batched_requests"]) 'queue_wait', submit
+        # to batch formation
         self.phase_totals: Dict[str, float] = {}
+        self._batch_numbers = itertools.count()
         self._phase_lock = threading.Lock()
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="jen1-dispatcher", daemon=True)
@@ -233,10 +264,13 @@ class GenerationService:
             steps=int(steps if steps is not None else self.default_steps),
             seed=int(seed),
             use_gdm=bool(use_gdm if use_gdm is not None else self.default_use_gdm),
+            t_submit_ns=time.time_ns(),
         )
-        self._bump(requests=1)
-        self._queue.put(req)
-        if not req.done.wait(timeout):
+        with annotate("serve.request", key=req.uid):
+            self._bump(requests=1)
+            self._queue.put(req)
+            answered = req.done.wait(timeout)
+        if not answered:
             # abandoned: the dispatcher releases the depth slot and skips the
             # request at batch formation
             req.cancelled = True
@@ -329,17 +363,19 @@ class GenerationService:
     def _next_request(self, timeout: float) -> Optional[_Request]:
         if self._pending:
             return self._pending.popleft()
-        try:
-            return self._queue.get(timeout=timeout)
-        except queue.Empty:
-            return None
+        with annotate("serve.await_request"):
+            try:
+                return self._queue.get(timeout=timeout)
+            except queue.Empty:
+                return None
 
-    def _collect_batch(self) -> List[_Request]:
+    def _collect_batch(self) -> Tuple[int, List[_Request]]:
         """Block for one request, then drain co-batchable ones (same
         batch_key) for up to max_wait_ms. Bumped different-key requests go
         to the head-of-line `_pending` deque. Requests whose submitter timed
         out are finished and dropped here, before any device time is spent
-        on them."""
+        on them. Returns the batch's number (the key of its serve.* spans)
+        and its requests, stamped with its formation time."""
         for req in [r for r in self._pending if r.cancelled]:
             self._pending.remove(req)
             self._finish(req, error="cancelled (submitter timed out)")
@@ -347,31 +383,41 @@ class GenerationService:
         if first is None or first.cancelled:
             if first is not None:
                 self._finish(first, error="cancelled (submitter timed out)")
-            return []
-        batch = [first]
-        # older bumped requests of the same key ride this batch first
-        for req in list(self._pending):
-            if len(batch) >= self.max_batch:
-                break
-            if req.batch_key == first.batch_key:
-                self._pending.remove(req)
-                batch.append(req)
-        deadline = time.time() + self.max_wait_ms / 1e3
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.time()
-            if remaining <= 0:
-                break
-            try:
-                req = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if req.cancelled:
-                self._finish(req, error="cancelled (submitter timed out)")
-            elif req.batch_key == first.batch_key:
-                batch.append(req)
-            else:
-                self._pending.append(req)  # another shape: a later batch
-        return batch
+            return -1, []
+        number = next(self._batch_numbers)
+        with annotate("serve.collect", key=number):
+            batch = [first]
+            # older bumped requests of the same key ride this batch first
+            for req in list(self._pending):
+                if len(batch) >= self.max_batch:
+                    break
+                if req.batch_key == first.batch_key:
+                    self._pending.remove(req)
+                    batch.append(req)
+            deadline = time.time() + self.max_wait_ms / 1e3
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    break
+                try:
+                    req = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if req.cancelled:
+                    self._finish(req, error="cancelled (submitter timed out)")
+                elif req.batch_key == first.batch_key:
+                    batch.append(req)
+                else:
+                    self._pending.append(req)  # another shape: a later batch
+        now = time.time_ns()
+        for req in batch:
+            req.t_batched_ns = now
+        return number, batch
+
+    def phase_snapshot(self) -> Dict[str, float]:
+        """A copy of `phase_totals`, taken under their lock."""
+        with self._phase_lock:
+            return dict(self.phase_totals)
 
     def _add_phases(self, timings: Dict[str, float]) -> None:
         with self._phase_lock:
@@ -385,21 +431,27 @@ class GenerationService:
                     self._inflight.put(None)
                 return
             t_c0 = time.perf_counter()
-            batch = self._collect_batch()
+            number, batch = self._collect_batch()
             if not batch:
                 continue
-            self._add_phases({"collect": time.perf_counter() - t_c0})
+            self._add_phases({
+                "collect": time.perf_counter() - t_c0,
+                "queue_wait": sum(r.t_batched_ns - r.t_submit_ns for r in batch) / 1e9,
+            })
+            self._bump(batched_requests=len(batch))
             self.stats["busy"] = True
             t0 = time.time()
             try:
-                with self._device_lock:
+                with self._device_lock, annotate("serve.dispatch", key=number):
                     audio = self._dispatch_batch(batch)
+                    events = getattr(self.jen1, "last_decode_events", None)
             except Exception as e:  # noqa: BLE001 - reported to the callers
                 self._fail(batch, e)
                 self.stats["busy"] = False
                 continue
             # blocks only while `pipeline_depth` batches wait for a completer
-            self._inflight.put((batch, audio, t0))
+            self._inflight.put(_Dispatched(batch, number, audio, t0, time.perf_counter(),
+                                           events))
             self.stats["busy"] = False
 
     def _complete_loop(self) -> None:
@@ -409,13 +461,21 @@ class GenerationService:
             item = self._inflight.get()
             if item is None:
                 return
-            batch, audio_dev, t0 = item
+            batch = item.batch
             try:
                 t_f0 = time.perf_counter()
-                audio = to_host(audio_dev)  # waits for the decode, then copies
-                self._add_phases({"fetch": time.perf_counter() - t_f0})
+                with annotate("serve.fetch", key=item.number):
+                    audio = to_host(item.audio)  # waits for the decode, then copies
+                phases = {"handoff": t_f0 - item.t_returned,
+                          "fetch": time.perf_counter() - t_f0}
+                if item.decode_events is not None:
+                    start, end = item.decode_events
+                    end.synchronize()
+                    phases["decode_device"] = start.elapsed_time(end) / 1e3
+                self._add_phases(phases)
                 with self._stats_lock:
-                    self._batch_secs_ewma = 0.7 * self._batch_secs_ewma + 0.3 * (time.time() - t0)
+                    self._batch_secs_ewma = (0.7 * self._batch_secs_ewma
+                                             + 0.3 * (time.time() - item.t_dispatch))
                     self.stats["batches"] += 1
                     self.stats["padded_lanes"] += self.max_batch - len(batch)
                 for lane, req in enumerate(batch):
@@ -508,6 +568,7 @@ def make_handler(service: GenerationService, sample_rate: int):
                     "queue_depth": service.queue_depth,
                     "max_queue": service.max_queue,
                     **service.stats,
+                    "phase_totals": service.phase_snapshot(),
                 }).encode()
                 self._send(200, body, "application/json")
             else:

@@ -20,10 +20,11 @@ frozen base (`train/lora.py::LoRATrainer`; `--lora-base-ckpt` names the
 base, else it is random from the seed), and the checkpoints hold the
 adapter alone: generate with `Jen1(ckpt_path=<base>, lora_path=<save_dir>)`.
 `--profile` records steps 2-4 (after two warm-up steps, in which the
-kernels build and cuDNN picks its algorithms) with `torch.profiler` into a
-Chrome-trace JSON in log_dir (`utils/profiling.py`); each step is
-annotated `train_step` (and `encode`), its phases `forward_backward` and
-`optimizer`.
+kernels build and cuDNN picks its algorithms) with `torch.profiler`, every
+thread, into a Chrome-trace JSON in log_dir (`utils/profiling.py`); each
+step is annotated `train_step` (and `encode`), its phases
+`train.prepare_batch`, `train.draws`, `forward_backward`, `optimizer` and
+`train.ema`, and the loader's wait `data.wait`.
 
 Step `i` draws its device randoms from `step_generator(device, seed, i)`
 and text_guided's causal coin from `np.random.default_rng((seed, i))`, the

@@ -502,8 +502,9 @@ class UnifiedMultiTaskTrainer:
         """One multi-task step: loss, backward, optimizer, EMA. Updates the
         model's parameters and `state` in place and returns both with the
         metrics (device tensors: loss/train, grad_norm, loss_<task>/train)."""
-        flags = self._causal_flags(rng_host)
-        draws = self._step_draws(generator, flags, batch)
+        with annotate("train.draws"):
+            flags = self._causal_flags(rng_host)
+            draws = self._step_draws(generator, flags, batch)
         self.model.train()
         for p in self.params:
             p.grad = None
@@ -515,7 +516,7 @@ class UnifiedMultiTaskTrainer:
             gnorm = self._apply_optimizer(state)
         if state.ema_params is not None:
             d = self.ema_decay
-            with torch.no_grad():
+            with torch.no_grad(), annotate("train.ema"):
                 torch._foreach_mul_(state.ema_params, d)
                 torch._foreach_add_(state.ema_params, self._local_params(), alpha=1.0 - d)
         state.step += 1
@@ -565,15 +566,17 @@ class UnifiedMultiTaskTrainer:
         rank's frames of them (`local_frames`)."""
         if self.conditioner is None:
             raise ValueError("prepare_batch needs a conditioner")
-        text_emb, text_mask = self.conditioner(metadata)["prompt"]
-        up = self.config.dataset_config.latents_upload_dtype
-        dtype = torch.bfloat16 if up == "bfloat16" else torch.float32
-        latents = self.local_frames(torch.as_tensor(np.asarray(latents, np.float32)).to(dtype))
-        return {
-            "latents": latents.to(self.device),
-            "text_emb": text_emb.to(self.device, self.compute_dtype),
-            "text_mask": text_mask.to(self.device),
-        }
+        with annotate("train.prepare_batch"):
+            text_emb, text_mask = self.conditioner(metadata)["prompt"]
+            up = self.config.dataset_config.latents_upload_dtype
+            dtype = torch.bfloat16 if up == "bfloat16" else torch.float32
+            latents = self.local_frames(
+                torch.as_tensor(np.asarray(latents, np.float32)).to(dtype))
+            return {
+                "latents": latents.to(self.device),
+                "text_emb": text_emb.to(self.device, self.compute_dtype),
+                "text_mask": text_mask.to(self.device),
+            }
 
     def evaluate(self, state: TrainState, batches: Iterable, seed: int) -> Dict[str, float]:
         """Mean validation losses over `batches` (trainer.py:539-567). With

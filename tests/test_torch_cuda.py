@@ -499,6 +499,29 @@ def test_service_round_trip_on_cuda(cuda_device):
     assert svc.stats["padded_lanes"] == 2 and svc.stats["errors"] == 0
 
 
+def test_decode_events_time_the_decode_on_cuda(cuda_device):
+    """Under device transport on the card, generate() leaves CUDA events
+    around its decode (none under host transport), and the service adds
+    their time to phase_totals["decode_device"] once per batch."""
+    from jen1_tpu_torch.serve import GenerationService
+
+    card = tiny_jen1s()["cuda"]
+    card.generate("x", seed=1, steps=2, seconds=2.0, output_transport="device")
+    start, end = card.last_decode_events
+    end.synchronize()
+    assert start.elapsed_time(end) > 0
+    card.generate("x", seed=1, steps=2, seconds=2.0)
+    assert card.last_decode_events is None
+    svc = GenerationService(card, max_batch=2, max_wait_ms=5.0, default_seconds=2.0,
+                            default_steps=2)
+    try:
+        svc.submit("y", timeout=600)
+        svc.submit("z", timeout=600)
+    finally:
+        svc.close()
+    assert svc.stats["batches"] == 2 and svc.phase_totals["decode_device"] > 0
+
+
 def test_lora_step_on_cuda_matches_cpu(cuda_device):
     """A tiny LoRATrainer step (rank 4, default targets; L = 520, so the
     level-1 attention of 130 frames runs K1 and, in the backward, K2/K3

@@ -524,6 +524,189 @@ class TestHTTP:
             httpd.service.close()
 
 
+class FakeEvent:
+    """A CUDA event's surface: `elapsed_time` in ms to a later event."""
+
+    def __init__(self, ms: float):
+        self.ms = ms
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.ms - self.ms
+
+
+class EventedFakeJen1(FakeJen1):
+    """A FakeJen1 whose every decode took 25 ms on the device."""
+
+    def generate(self, *args, **kw):
+        self.last_decode_events = (FakeEvent(100.0), FakeEvent(125.0))
+        return super().generate(*args, **kw)
+
+
+class GatedFakeJen1(FakeJen1):
+    """A FakeJen1 whose first generate() waits for `gate`."""
+
+    def __init__(self):
+        super().__init__()
+        self.entered, self.gate = threading.Event(), threading.Event()
+
+    def generate(self, *args, **kw):
+        if not self.entered.is_set():
+            self.entered.set()
+            assert self.gate.wait(timeout=60)
+        return super().generate(*args, **kw)
+
+
+def submit_all(svc, n, **kw):
+    """n concurrent requests; returns the submitting threads' idents."""
+    idents = [None] * n
+
+    def worker(i):
+        idents[i] = threading.get_ident()
+        svc.submit(f"r{i}", seconds=0.01, steps=1, timeout=60, **kw)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    return idents
+
+
+class TestTracing:
+    """Queue wait, hand-off and the decode's device time as counters, and
+    the serve.* spans in utils/profiling's ring."""
+
+    @pytest.mark.parametrize("wait_ms,n", [(50.0, 1), (120.0, 2)])
+    def test_queue_wait_holds_the_cobatching_window(self, wait_ms, n):
+        """A request alone waits out the whole window before its batch is
+        formed: queue_wait is at least n windows over n batched requests."""
+        svc = GenerationService(FakeJen1(), max_batch=4, max_wait_ms=wait_ms)
+        try:
+            for i in range(n):
+                svc.submit(f"alone {i}", seconds=0.01, steps=1, timeout=60)
+        finally:
+            svc.close()
+        assert svc.stats["batched_requests"] == n
+        assert svc.phase_totals["queue_wait"] >= n * wait_ms / 1e3
+
+    def test_queue_wait_holds_the_wait_behind_a_busy_device(self):
+        """Three requests queued while the dispatcher is held in a generate()
+        for 0.3 s after all three were submitted each wait at least that
+        long."""
+        fake = GatedFakeJen1()
+        svc = GenerationService(fake, max_batch=1, max_wait_ms=1.0)
+        try:
+            blocker = threading.Thread(
+                target=svc.submit, args=("blocker",), kwargs=dict(seconds=0.01, steps=1))
+            blocker.start()
+            assert fake.entered.wait(timeout=60)
+            queued = threading.Thread(target=submit_all, args=(svc, 3))
+            queued.start()
+            # stats["requests"] counts a request after its submit stamp
+            deadline = time.time() + 60
+            while svc.stats["requests"] < 4 and time.time() < deadline:
+                time.sleep(0.001)
+            time.sleep(0.3)
+            fake.gate.set()
+            queued.join(timeout=60)
+            blocker.join(timeout=60)
+        finally:
+            svc.close()
+        assert svc.stats["batched_requests"] == 4 and svc.stats["batches"] == 4
+        assert svc.phase_totals["queue_wait"] >= 3 * 0.3
+
+    def test_request_spans_share_uid_and_batches_follow_the_dispatcher(self, monkeypatch):
+        """serve.request spans are keyed by their requests' uids, on the
+        submitting threads, each around one batch's dispatch and fetch;
+        collect, dispatch and the empty polls lie on the dispatcher's
+        timeline, one after another."""
+        import itertools
+
+        from jen1_tpu_torch import serve as serve_mod
+        from jen1_tpu_torch.utils import profiling
+
+        monkeypatch.setattr(serve_mod, "_REQ_IDS", itertools.count(10_000))
+        t0 = time.time_ns()
+        svc = GenerationService(FakeJen1(delay=0.02), max_batch=2, max_wait_ms=30.0)
+        try:
+            idents = submit_all(svc, 5)
+        finally:
+            svc.close()
+        # this service's threads: other services of the module run beside it
+        dispatcher = svc._thread.ident
+        ours = set(idents) | {dispatcher} | {c.ident for c in svc._completers}
+        spans = [s for s in profiling.spans(t0) if s[0].startswith("serve.") and s[3] in ours]
+        by = {name: [s for s in spans if s[0] == f"serve.{name}"]
+              for name in ("request", "await_request", "collect", "dispatch", "fetch")}
+        assert sorted(s[4] for s in by["request"]) == list(range(10_000, 10_005))
+        assert {s[3] for s in by["request"]} == set(idents)
+        timeline = sorted(by["await_request"] + by["collect"] + by["dispatch"],
+                          key=lambda s: s[1])
+        assert {s[3] for s in timeline} == {dispatcher}
+        assert all(a[2] <= b[1] for a, b in zip(timeline, timeline[1:]))
+        assert len(by["collect"]) == svc.stats["batches"]
+        collect = {s[4]: s for s in by["collect"]}
+        dispatch = {s[4]: s for s in by["dispatch"]}
+        fetch = {s[4]: s for s in by["fetch"]}
+        assert set(collect) == set(dispatch) == set(fetch) and len(collect) >= 3
+        for b in collect:
+            assert collect[b][2] <= dispatch[b][1] and dispatch[b][2] <= fetch[b][2]
+            assert fetch[b][3] != dispatcher
+        for req in by["request"]:
+            assert any(req[1] <= dispatch[b][1] and fetch[b][2] <= req[2] for b in collect)
+
+    @pytest.mark.parametrize("fake,decode_s", [(FakeJen1, None), (EventedFakeJen1, 0.025)])
+    def test_decode_device_only_where_the_jen1_has_events(self, fake, decode_s):
+        svc = GenerationService(fake(), max_batch=2, max_wait_ms=1.0)
+        try:
+            submit_all(svc, 3)
+        finally:
+            svc.close()
+        batches = svc.stats["batches"]
+        assert svc.phase_totals["handoff"] >= 0.0 and "fetch" in svc.phase_totals
+        if decode_s is None:
+            assert "decode_device" not in svc.phase_totals
+        else:
+            assert svc.phase_totals["decode_device"] == pytest.approx(batches * decode_s)
+
+    @pytest.mark.parametrize("name", ["request", "await_request", "collect", "dispatch",
+                                      "fetch"])
+    def test_each_serve_span_is_recorded_on_its_thread(self, name):
+        from jen1_tpu_torch.utils import profiling
+
+        t0 = time.time_ns()
+        svc = GenerationService(FakeJen1(), max_batch=1, max_wait_ms=1.0)
+        try:
+            (submitter,) = submit_all(svc, 1)
+        finally:
+            svc.close()
+        completers = {c.ident for c in svc._completers}
+        ours = {submitter, svc._thread.ident} | completers
+        threads = {s[3] for s in profiling.spans(t0) if s[0] == f"serve.{name}"} & ours
+        want = {"request": {submitter}, "fetch": completers}.get(name, {svc._thread.ident})
+        assert threads and threads <= want
+
+    def test_healthz_reports_phase_totals(self):
+        httpd = serve(FakeJen1(), host="127.0.0.1", port=0, max_batch=2, max_wait_ms=5.0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            httpd.service.submit("x", seconds=0.01, steps=1, timeout=30)
+            url = f"http://127.0.0.1:{httpd.server_address[1]}/healthz"
+            with urllib.request.urlopen(url, timeout=10) as r:
+                body = json.loads(r.read())
+        finally:
+            httpd.shutdown()
+            httpd.service.close()
+        assert body["batched_requests"] == 1 and body["batches"] == 1
+        assert {"collect", "queue_wait", "handoff", "fetch"} <= set(body["phase_totals"])
+        assert body["phase_totals"]["queue_wait"] >= 0.0
+
+
 def test_batch_generate_writes_wavs_and_manifest(tmp_path):
     """3 prompts in batches of 2 (the second padded with ""): one WAV per
     prompt and a manifest, on the CPU. The CLI builds the EnCodec-48k codec

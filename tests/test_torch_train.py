@@ -21,6 +21,8 @@ Bars:
 import copy
 import dataclasses
 import json
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -431,6 +433,60 @@ def test_accumulation_and_ema():
     assert not all(torch.equal(a, p) for a, p in zip(p0, trainer.params))
     for e, a, p in zip(state.ema_params, p0, trainer.params):
         torch.testing.assert_close(e, 0.9 * a + 0.1 * p.detach(), rtol=1e-6, atol=1e-7)
+
+
+def tiny_trainer(**fields):
+    _, pcfg = flash_model_configs()
+    for k, v in fields.items():
+        setattr(pcfg, k, v)
+    model = init_module(port_unet(pcfg.model_config), torch.Generator().manual_seed(0))
+    return pcfg, UnifiedMultiTaskTrainer(
+        pcfg, model, create_gaussian_diffusion(pcfg.diffusion_config.gaussian_diffusion),
+        device="cpu")
+
+
+def thread_spans(since_ns):
+    """This thread's spans of the ring since `since_ns`, in start order."""
+    from jen1_tpu_torch.utils import profiling
+
+    return [s for s in profiling.spans(since_ns) if s[3] == threading.get_ident()]
+
+
+@pytest.mark.parametrize("use_ema", [False, True])
+def test_train_step_stretches_are_spans(use_ema):
+    """A step's stretches are spans of its thread, back to back in order:
+    the draws, the loss's forward and backward, the optimizer and, with an
+    EMA, its update."""
+    pcfg, trainer = tiny_trainer(use_ema=use_ema)
+    batch = {k: torch.from_numpy(v) for k, v in step_batch(pcfg.model_config, 48).items()}
+    t0 = time.time_ns()
+    trainer.train_step(trainer.init_state(), batch, torch.Generator().manual_seed(0), Coin(0))
+    spans = thread_spans(t0)
+    want = ["train.draws", "forward_backward", "optimizer"] + (["train.ema"] if use_ema else [])
+    assert [s[0] for s in spans] == want
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+
+
+def test_prepare_batch_is_a_span():
+    """The frozen conditioner's pass and the upload are one
+    `train.prepare_batch` span."""
+    pcfg, trainer = tiny_trainer()
+    mc = pcfg.model_config
+    calls = []
+
+    def conditioner(metadata):
+        calls.append(time.time_ns())
+        n, m = len(metadata), mc.context_embedding_max_length
+        return {"prompt": (torch.zeros(n, m, mc.context_embedding_features),
+                           torch.ones(n, m, dtype=torch.bool))}
+
+    trainer.conditioner = conditioner
+    t0 = time.time_ns()
+    batch = trainer.prepare_batch(np.zeros((2, 48, mc.in_channels), np.float32),
+                                  [{"prompt": "a"}, {"prompt": "b"}])
+    (span,) = thread_spans(t0)
+    assert span[0] == "train.prepare_batch" and span[1] <= calls[0] <= span[2]
+    assert batch["latents"].shape == (2, 48, mc.in_channels)
 
 
 def test_train_and_eval_steps_run_without_tf32():

@@ -9,6 +9,7 @@ codec's, random here) and 0.5 s windows (75 latent frames).
 
 import dataclasses
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -97,16 +98,27 @@ def test_preprocess_train_lora_generate(corpus, tmp_path):
     assert out.shape == (1, 2, 24_000) and np.isfinite(out).all()
 
 
-def test_step_timer_and_trace_context(tmp_path):
-    timer = profiling.StepTimer(warmup=1, device="cpu")
-    for _ in range(3):
-        with timer:
-            torch.ones(8).sum()
-    assert timer.stats()["steps"] == 2
+def test_trace_context_records_every_thread(tmp_path):
+    """The written trace names the regions of the tracing thread and of a
+    thread started before the trace (a service's dispatcher, a loader)."""
+    go, done = threading.Event(), threading.Event()
+
+    def worker():
+        assert go.wait(timeout=60)
+        with profiling.annotate("region_in_thread"):
+            torch.ones(4) * 3
+        done.set()
+
+    early = threading.Thread(target=worker)
+    early.start()
     with profiling.trace(str(tmp_path)):
         with profiling.annotate("region_x"):
             torch.ones(4) * 2
+        go.set()
+        assert done.wait(timeout=60)
+    early.join(timeout=60)
     (path,) = tmp_path.glob("trace_*.json")
-    assert "region_x" in path.read_text()
+    text = path.read_text()
+    assert "region_x" in text and "region_in_thread" in text
     with pytest.raises(RuntimeError, match="no trace"):
         profiling.stop_trace()
