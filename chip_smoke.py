@@ -31,6 +31,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    before the product would shift; K4 timed per flagship
                    shape with its weights cold in L2, beside its plain
                    version, its bound and a bf16 torch.matmul yardstick.
+                   K5 (GroupNorm + FiLM + SiLU, channels-last) against its
+                   plain version at the main path's shapes, both dtypes,
+                   with and without FiLM and SiLU, a cropped input; the
+                   shapes of one Config() UNet forward (B=8, 4500 frames)
+                   counted and each timed by device time beside its byte
+                   bound, its plain version and the library's composition
+                   in its own layout, per shape and summed over the forward.
   4. small       - the generation slice (T5, VDM + UNetCFG1d with its flash
                    path, chunked decode) at tiny widths, on the card against
                    the CPU with the same weights and the same initial noise.
@@ -308,9 +315,16 @@ INT8_REL_BAR = 1e-4
 # call finds its weights cold in the 50 MB L2, as a UNet forward does (its
 # 52 int8 kernels hold 124 MB)
 L2_FLUSH_BYTES = 128 << 20
+# K5 (GroupNorm + FiLM + SiLU): (B, L, C, groups, eps) checked in phase
+# kernels (tests/test_torch_cuda.py::GN_SHAPES), at the B=8 CFG batch
+GN_BATCH = 8
+GN_SHAPES = ((8, 4500, 128, 1, 1e-5), (8, 4500, 128, 8, 1e-5), (8, 4500, 257, 1, 1e-5),
+             (8, 1125, 128, 8, 1e-5), (8, 35, 512, 8, 1e-5), (8, 2, 1024, 32, 1e-6),
+             (8, 5, 257, 1, 1e-5))
 FLAGSHIP_STEPS = 100
 FLAGSHIP_SECONDS = 30
 FLAGSHIP_READ_CONVS = 52  # stride-1 convs that read their int8 kernel
+FLAGSHIP_GROUP_NORMS = 125  # GroupNorm modules, each run once a forward
 FLAGSHIP_QUANTIZED = 56  # conv kernels the JAX rule selects
 
 # the tasks slice: a seeded 30 s clip, inpainted over 10-20 s, and its
@@ -641,6 +655,7 @@ def phase_kernels(torch, clock_hz: float) -> list:
     rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err, stft_err, tp2_err)]
     rows += time_backward(torch, F, fa, gen, clock_hz)
     rows.append(int8_kernel_row(torch))
+    rows.append(group_norm_kernel_row(torch))
     return rows
 
 
@@ -848,6 +863,157 @@ def int8_kernel_row(torch) -> dict:
             "source": "jen1_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "jen1_tpu/ops/int8_matmul.py:48", "max_abs_err": worst,
             "bound_by": "operations" if sum_ops >= sum_bytes else "bytes", **row}
+
+
+def group_norm_census(torch, norm) -> dict:
+    """{(B, L, C, groups, eps, FiLM, act): calls} of K5 in one Config() UNet
+    forward at the flagship's B=8 CFG batch, 4500 frames, bf16 compute."""
+    import collections
+
+    from jen1_tpu_torch.config import Config
+    from jen1_tpu_torch.models.unet import unet_from_model_config
+    from jen1_tpu_torch.ops.initializers import init_module
+
+    mc = Config().model_config
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.device("cuda"):
+        unet = init_module(unet_from_model_config(mc), gen).eval()
+    b, length = GN_BATCH, FLAGSHIP_SECONDS * 150
+    x = torch.randn((b, length, mc.in_channels), generator=gen, device="cuda")
+    chans = torch.randn((b, length, mc.context_channels[0]), generator=gen, device="cuda")
+    emb = torch.randn((b, 16, mc.context_embedding_features), generator=gen, device="cuda")
+    kernel, census = norm.group_norm_act_cuda, collections.Counter()
+
+    def recording(x, groups, weight, bias, eps, scale_shift=None, act=None):
+        census[(*x.shape, groups, eps, scale_shift is not None, act)] += 1
+        return kernel(x, groups, weight, bias, eps, scale_shift, act)
+
+    norm.group_norm_act_cuda = recording
+    try:
+        with torch.no_grad():
+            unet(x.to(torch.bfloat16), torch.rand((b,), generator=gen, device="cuda"),
+                 embedding=emb.to(torch.bfloat16), channels_list=[chans.to(torch.bfloat16)])
+        torch.cuda.synchronize()
+    finally:
+        norm.group_norm_act_cuda = kernel
+    del unet
+    torch.cuda.empty_cache()
+    return dict(census)
+
+
+def gn_case(torch, gen, b, length, c, dtype, film: bool, copies: int = 1):
+    """`copies` sets of K5's inputs: x (B, L, C), gamma, beta, FiLM rows."""
+    out = []
+    for _ in range(copies):
+        x = (1.5 + 2.0 * torch.randn((b, length, c), generator=gen, device="cuda")).to(dtype)
+        weight = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        ss = (tuple(torch.randn((b, 1, c), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2)) if film else None)
+        out.append((x, weight, bias, ss))
+    return out
+
+
+def check_group_norm(torch, norm, x, groups, weight, bias, eps, ss, act) -> float:
+    """K5 against its plain version at tests/test_torch_cuda.py's bar;
+    returns max|diff|."""
+    out = norm.group_norm_act_cuda(x, groups, weight, bias, eps, ss, act)
+    torch.cuda.synchronize()
+    ref = norm.group_norm_act_plain(x, groups, weight, bias, eps, ss, act)
+    gn = norm.group_norm_act_plain(x, groups, weight, bias, eps).float()
+    # the terms before the output that a rounding step passes through: the
+    # FiLM's (GroupNorm's output scaled, the product, the sum), or with no
+    # FiLM GroupNorm's output when SiLU follows; SiLU carries them at its
+    # slope, at most 1.1
+    carried = 0.0
+    if ss is not None:
+        prod = gn * (ss[0] + 1.0).float()
+        carried = 2 * prod.abs() + (prod + ss[1].float()).abs()
+    if act == "silu":
+        carried = 1.1 * (gn.abs() if ss is None else carried)
+    terms = ref.float().abs() + carried
+    rel = 2**-7 if x.dtype == torch.bfloat16 else 2**-18
+    diff = (out.float() - ref.float()).abs()
+    differ = (diff > 0).float().mean().item()
+    ok = bool((diff <= rel * terms + 1e-6).all()) and (
+        x.dtype != torch.bfloat16 or differ <= 1e-3)
+    log(f"[kernels] K5 {tuple(x.shape)} groups {groups} {str(x.dtype)[6:]} FiLM "
+        f"{ss is not None} act {act}: max|diff| {diff.max().item():.3e}, share of elements "
+        f"that differ {differ:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: group_norm_act_cuda disagrees with its plain version")
+    return diff.max().item()
+
+
+def group_norm_kernel_row(torch) -> dict:
+    """K5 checked at the main path's shapes (both dtypes, with and without
+    FiLM and SiLU, a cropped input) and checked and timed, by device time,
+    at every shape of one flagship UNet forward's census (inputs cold in L2
+    where 128 MB of copies allow) beside its byte bound (one read and one write
+    of x), its plain version and the library's own composition in its own
+    layout (F.group_norm on a (B, C, L)-contiguous bf16 x, then the FiLM and
+    SiLU): per shape, and summed over the forward's calls."""
+    import torch.nn.functional as F
+
+    from jen1_tpu_torch.ops import norm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = 0.0
+    for b, length, c, groups, eps in GN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for film, act in ((True, "silu"), (False, None), (True, None), (False, "silu")):
+                ((x, w, bias, ss),) = gn_case(torch, gen, b, length, c, dtype, film)
+                err = check_group_norm(torch, norm, x, groups, w, bias, eps, ss, act)
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    ((x, w, bias, ss),) = gn_case(torch, gen, 8, 4508, 128, torch.bfloat16, True)
+    check_group_norm(torch, norm, x[:, 8:], 8, w, bias, 1e-5, ss, "silu")
+
+    census = group_norm_census(torch, norm)
+    log(f"[kernels] K5 census of one Config() UNet forward at B={GN_BATCH}, "
+        f"{FLAGSHIP_SECONDS * 150} frames: {sum(census.values())} calls, "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(census.items(), key=str)))
+
+    def library(xt, groups, w16, b16, eps, ss):
+        y = F.group_norm(xt, groups, w16, b16, eps)
+        if ss is not None:
+            y = y * (ss[0].transpose(1, 2) + 1.0) + ss[1].transpose(1, 2)
+        return F.silu(y)
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for (b, length, c, groups, eps, film, act), calls in sorted(census.items(), key=str):
+        nbytes = 2 * 2 * b * length * c + 8 * c + (2 * 2 * b * c if film else 0)
+        copies = max(1, min(64, -(-L2_FLUSH_BYTES // nbytes)))
+        args = [(x, groups, w, bias, eps, ss, act)
+                for x, w, bias, ss in gn_case(torch, gen, b, length, c, torch.bfloat16, film,
+                                              copies)]
+        worst = max(worst, check_group_norm(torch, norm, *args[0]))
+        ms = device_ms(torch, norm.group_norm_act_cuda, args, 200)
+        plain = device_ms(torch, norm.group_norm_act_plain, args, 100)
+        lib_args = [(x.transpose(1, 2).contiguous(), groups, w.to(x.dtype), bias.to(x.dtype),
+                     eps, ss) for x, groups, w, bias, eps, ss, _ in args]
+        lib = device_ms(torch, library, lib_args, 100)
+        del args, lib_args
+        if min(ms, plain, lib) <= 0.0:
+            raise SystemExit("chip_smoke: the profiler saw no device time for K5's timing")
+        bound = nbytes / PEAK_BYTES * 1e3
+        plan = norm.launch_plan(b, length, c, groups, 2, 8 if c % 8 == 0 else 1)
+        shape = (f"one launch, {plan.slices} blocks an example" if plan.resident else
+                 f"two launches, {plan.splits} blocks an example")
+        log(f"[kernels] K5 ({b}, {length}, {c}) groups {groups} FiLM {film} act {act} "
+            f"({calls} / forward; {shape}), device ms "
+            f"per call: kernel {ms:.5f}, plain {plain:.5f}, library {lib:.5f}, bound "
+            f"{bound:.6f} (bytes: {nbytes / 1e6:.3f} MB)")
+        for key, value in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                           ("library_ms", lib)):
+            total[key] += calls * value
+    log(f"[kernels] K5 summed over one forward's {sum(census.values())} calls, ms: "
+        + " ".join(f"{k}={v:.5f}" for k, v in total.items()))
+    return {"name": "group_norm_act", "route": "cuda",
+            "source": "jen1_tpu_torch/csrc/group_norm.cu",
+            "replaces": "none (jen1_tpu/ops/norm.py is plain jnp)", "max_abs_err": worst,
+            "bound_by": "bytes", "per": "one flagship UNet forward",
+            "calls_per_forward": sum(census.values()), **total}
 
 
 def time_backward(torch, F, fa, gen, clock_hz: float) -> list:
@@ -1774,15 +1940,16 @@ def flagship_forwards(torch, im, jen1, q) -> None:
                          "plain version")
 
 
-def phase_flagship(torch) -> int:
-    """The int8 flagship slice; returns the K4 launches of the two timed
-    requests."""
+def phase_flagship(torch) -> tuple:
+    """The int8 flagship slice; returns the K4 and K5 launches of the timed
+    requests and of the graph case."""
     import numpy as np
 
     from jen1_tpu_torch.api.generation import Jen1
     from jen1_tpu_torch.config import Config
     from jen1_tpu_torch.ops import flash_attention as fa
     from jen1_tpu_torch.ops import int8_matmul as im
+    from jen1_tpu_torch.ops import norm
 
     t0 = time.perf_counter()
     jen1 = Jen1(config=Config(), device="cuda")
@@ -1796,13 +1963,18 @@ def phase_flagship(torch) -> int:
     log(f"[flagship] Jen1(Config()) built and quantized in {time.perf_counter() - t0:.2f} s; "
         f"UNet params {n_params}; {len(q)} conv kernels quantized ({int8_bytes} int8 bytes), "
         f"{read} read by stride-1 convs ({read_bytes} bytes per forward)")
-    if (len(q), read) != (FLAGSHIP_QUANTIZED, FLAGSHIP_READ_CONVS):
-        raise SystemExit(f"chip_smoke: census {len(q)} / {read}, want "
-                         f"{FLAGSHIP_QUANTIZED} / {FLAGSHIP_READ_CONVS}")
+    gn = group_norms(jen1.model)
+    if (len(q), read, gn) != (FLAGSHIP_QUANTIZED, FLAGSHIP_READ_CONVS, FLAGSHIP_GROUP_NORMS):
+        raise SystemExit(f"chip_smoke: census {len(q)} / {read} / {gn} GroupNorms, want "
+                         f"{FLAGSHIP_QUANTIZED} / {FLAGSHIP_READ_CONVS} / "
+                         f"{FLAGSHIP_GROUP_NORMS}")
     flagship_forwards(torch, im, jen1, q)
 
     kw = dict(steps=FLAGSHIP_STEPS, seconds=FLAGSHIP_SECONDS, use_gdm=True)
     expected = read * FLAGSHIP_STEPS
+    # K5 and the plain route per request: every GroupNorm of each step's one
+    # forward runs K5
+    want_gn = (gn * FLAGSHIP_STEPS, 0)
     samples = FLAGSHIP_SECONDS * jen1.sample_rate
     t0 = time.perf_counter()
     out = jen1.generate("warm-up", seed=1, **kw)
@@ -1810,8 +1982,9 @@ def phase_flagship(torch) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     im.LAUNCHES = fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
-    launches, outs = [], []
+    launches, gn_counts, outs = [], [], []
     for prompt, seed in SLICE_PROMPTS:
+        norm.LAUNCHES = norm.PLAIN_CUDA = 0
         before = im.LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1819,13 +1992,18 @@ def phase_flagship(torch) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches.append(im.LAUNCHES - before)
+        gn_counts.append((norm.LAUNCHES, norm.PLAIN_CUDA))
         outs.append(out)
         phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
         log(f"[flagship] int8 request seed={seed}: wall {wall:.4f} s; phases (s): {phases}; "
-            f"K4 launches {launches[-1]}; shape {out.shape}; "
+            f"K4 launches {launches[-1]}; K5 launches, plain GroupNorms {gn_counts[-1]} "
+            f"(want {want_gn}: {gn} a forward); shape {out.shape}; "
             f"finite {bool(np.isfinite(out).all())}; "
             f"rms {float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
     total, flash = im.LAUNCHES, (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    if gn_counts != [want_gn] * len(SLICE_PROMPTS):
+        raise SystemExit(f"chip_smoke: K5 launches and plain GroupNorms per request "
+                         f"{gn_counts}, want {want_gn}")
     log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated()} bytes")
     for out in outs:
         if out.shape != (1, 2, samples) or not np.isfinite(out).all():
@@ -1854,12 +2032,14 @@ def phase_flagship(torch) -> int:
     k4 = [(n, t) for name, (n, t) in by_name.items() if "int8w_" in name]
     log(f"[flagship-profile] K4 device time {sum(t for _, t in k4):.4f} s in "
         f"{sum(n for n, _ in k4)} kernel launches")
-    return total + graph_case(
+    graphed = graph_case(
         torch, "graphs-flagship", jen1,
-        lambda: jen1.generate(prompt, seed=seed, batch_size=1, **kw), (0, expected),
+        lambda: jen1.generate(prompt, seed=seed, batch_size=1, **kw),
+        (0, expected) + want_gn,
         lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
                               seconds=FLAGSHIP_SECONDS, use_gdm=True),
-        (0, read * PROFILE_STEPS))[1]
+        (0, read * PROFILE_STEPS, gn * PROFILE_STEPS, 0))
+    return total + graphed[1], sum(n for n, _ in gn_counts) + graphed[2]
 
 
 def profile_window(torch, tag: str, what: str, fn, warm: bool = False) -> dict:
@@ -1898,16 +2078,23 @@ def profile_window(torch, tag: str, what: str, fn, warm: bool = False) -> dict:
     return by_name
 
 
+# K5's kernels; a call runs one of K5_CALL_KERNELS (the statistics kernel
+# goes before the apply kernel at long rows)
+K5_KERNELS = ("gn_resident_kernel", "gn_stats_kernel", "gn_apply_kernel")
+K5_CALL_KERNELS = ("gn_resident_kernel", "gn_apply_kernel")
+
+
 def is_port_kernel(name: str) -> bool:
-    return "flash_" in name or "int8w_" in name
+    return "flash_" in name or "int8w_" in name or any(k in name for k in K5_KERNELS)
 
 
 def trace_launches(by_name: dict) -> tuple:
-    """(K1, K4) launches in a profile_window trace (PyTorch's own flash
-    kernels excluded)."""
+    """(K1, K4, K5) launches in a profile_window trace (PyTorch's own flash
+    kernels excluded; K5 counted by calls)."""
     k1 = sum(n for name, (n, _) in by_name.items()
              if "flash_fwd" in name and "pytorch_flash" not in name)
-    return k1, sum(n for name, (n, _) in by_name.items() if "int8w_" in name)
+    k5 = sum(n for name, (n, _) in by_name.items() if any(k in name for k in K5_CALL_KERNELS))
+    return k1, sum(n for name, (n, _) in by_name.items() if "int8w_" in name), k5
 
 
 def log_kernel_time(by_name: dict, tag: str, keys, what: str, where: str) -> None:
@@ -1920,11 +2107,14 @@ def log_kernel_time(by_name: dict, tag: str, keys, what: str, where: str) -> Non
 def phase_train(torch) -> tuple:
     """The training slice at full width; returns the K1/K2/K3 launches of
     the timed steps, of the checkpoint's two steps and of the remat
-    comparison's two steps."""
+    comparison's two steps. Every timed step runs its GroupNorms on the
+    plain route (the step needs their gradients; K5 has none): K5 launches
+    0, plain GroupNorms as many as GroupNorm modules were called."""
     import numpy as np
 
     from jen1_tpu_torch.config import longform_config
     from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops import norm
     from jen1_tpu_torch.train.train import build_trainer
     from jen1_tpu_torch.train.trainer import step_generator
 
@@ -1979,11 +2169,18 @@ def phase_train(torch) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
     fa.LAUNCHES_MMA = fa.LAUNCHES_DQ_MMA = fa.LAUNCHES_DKV_MMA = 0
-    walls, per_step = [], []
+    calls, unhook = count_group_norm_calls(trainer.model)
+
+    def gn_counts():
+        return norm.LAUNCHES, norm.PLAIN_CUDA, calls["calls"]
+
+    walls, per_step, gn_steps = [], [], []
     for i in range(1, TRAIN_STEPS + 1):
-        b = launch_counts()
+        b, g = launch_counts(), gn_counts()
         walls.append(step(TRAIN_WARMUP + i, i)[1])
         per_step.append(tuple(a - c for a, c in zip(launch_counts(), b)))
+        gn_steps.append(tuple(a - c for a, c in zip(gn_counts(), g)))
+    unhook()
     total = launch_counts()
     mma = (fa.LAUNCHES_MMA, fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV_MMA)
     med = statistics.median(walls)
@@ -1991,7 +2188,12 @@ def phase_train(torch) -> tuple:
         f"max {max(walls):.4f} s; audio-seconds trained per second "
         f"{TRAIN_BATCH * TRAIN_SECONDS / med:.3f}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; K1/K2/K3 launches per step {per_step}; "
-        f"K1/K2/K3 on the tensor-core route {mma} of {total}")
+        f"K1/K2/K3 on the tensor-core route {mma} of {total}; (K5 launches, plain "
+        f"GroupNorms, GroupNorm calls) per step {gn_steps}")
+    if any(k5 != 0 or plain != called or called < group_norms(trainer.model)
+           for k5, plain, called in gn_steps):
+        raise SystemExit(f"chip_smoke: (K5 launches, plain GroupNorms, GroupNorm calls) per "
+                         f"train step {gn_steps}: want no K5, every call on the plain route")
     if any(s != (TRAIN_LAUNCHES,) * 3 for s in per_step):
         raise SystemExit(f"chip_smoke: K1/K2/K3 launches per step {per_step}, "
                          f"want {TRAIN_LAUNCHES} each")
@@ -2433,7 +2635,7 @@ def phase_reuse(torch, jen1) -> int:
     return total
 
 
-def phase_serve(torch, jen1) -> int:
+def phase_serve(torch, jen1) -> tuple:
     """The serving path at full width: GenerationService(max_batch=
     SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS, 30 s, SLICE_STEPS DDIM steps) over
     the phase-main Jen1. One warm-up batch of PROFILE_STEPS steps;
@@ -2445,8 +2647,9 @@ def phase_serve(torch, jen1) -> int:
     requests, phase_totals, the peak device memory at B=4, K1 launches and
     stats. K1 is held to 2 launches per forward of the CFG-doubled batch, all
     on the tensor-core route, for the concurrent batches, each seeded request
-    and the HTTP request. Then the busy share of a PROFILE_STEPS B=4 request
-    under torch.profiler. Returns the counted K1 launches."""
+    and the HTTP request, and every GroupNorm of those forwards to K5 (none
+    on the plain route). Then the busy share of a PROFILE_STEPS B=4 request
+    under torch.profiler. Returns the counted K1 and K5 launches."""
     import io
     import threading
     import wave
@@ -2454,9 +2657,11 @@ def phase_serve(torch, jen1) -> int:
     import numpy as np
 
     from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops import norm
     from jen1_tpu_torch.serve import GenerationService
 
     sr = jen1.sample_rate
+    gn = group_norms(jen1.model)
     samples = SLICE_SECONDS * sr
     walls = []
     generate = jen1.generate
@@ -2479,6 +2684,7 @@ def phase_serve(torch, jen1) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+        norm.LAUNCHES = norm.PLAIN_CUDA = 0
         before = dict(svc.stats)
         batches_before = len(walls)
         results, latencies = [None] * SERVE_REQUESTS, [0.0] * SERVE_REQUESTS
@@ -2498,6 +2704,7 @@ def phase_serve(torch, jen1) -> int:
         span = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV)
+        k5 = (norm.LAUNCHES, norm.PLAIN_CUDA)
         batch_walls = walls[batches_before:]
         padded = svc.stats["padded_lanes"] - before["padded_lanes"]
         n_batches = svc.stats["batches"] - before["batches"]
@@ -2505,43 +2712,53 @@ def phase_serve(torch, jen1) -> int:
             f"{[round(x, 4) for x in latencies]}; {n_batches} batches, (requests, generate() "
             f"wall s) {[(n, round(w, 4)) for n, w in batch_walls]}; {padded} padded lanes; "
             f"span {span:.4f} s, audio-s per wall-s {SERVE_REQUESTS * SLICE_SECONDS / span:.4f}; "
-            f"peak device memory {peak} bytes; K1 launches (all, tensor-core, backward) {k1}")
+            f"peak device memory {peak} bytes; K1 launches (all, tensor-core, backward) {k1}; "
+            f"K5 launches, plain GroupNorms {k5}")
         want_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
         want_padded = want_batches * SERVE_BATCH - SERVE_REQUESTS
         want_k1 = want_batches * 2 * SLICE_STEPS
+        want_k5 = (want_batches * gn * SLICE_STEPS, 0)
         shapes_ok = all(r is not None and r.shape == (2, samples) and np.isfinite(r).all()
                         for r in results)
         if not shapes_ok or n_batches != want_batches or padded != want_padded \
-                or k1 != (want_k1, want_k1, 0):
+                or k1 != (want_k1, want_k1, 0) or k5 != want_k5:
             raise SystemExit(f"chip_smoke: serving gave {n_batches} batches, {padded} padded "
-                             f"lanes, K1 {k1}, shapes ok {shapes_ok}; want {want_batches}, "
-                             f"{want_padded}, ({want_k1}, {want_k1}, 0)")
-        launched = k1[0]
+                             f"lanes, K1 {k1}, K5 {k5}, shapes ok {shapes_ok}; want "
+                             f"{want_batches}, {want_padded}, ({want_k1}, {want_k1}, 0), "
+                             f"{want_k5}")
+        launched, launched_k5 = k1[0], k5[0]
 
         def one_batch_k1(what: str) -> int:
             # every single-batch request runs SLICE_STEPS full forwards of
-            # the CFG-doubled batch, all on the tensor-core route
-            k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV)
-            want = (2 * SLICE_STEPS, 2 * SLICE_STEPS, 0)
+            # the CFG-doubled batch, all on the tensor-core route, every
+            # GroupNorm on K5
+            nonlocal launched_k5
+            k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV,
+                  norm.LAUNCHES, norm.PLAIN_CUDA)
+            want = (2 * SLICE_STEPS, 2 * SLICE_STEPS, 0, gn * SLICE_STEPS, 0)
             if k1 != want:
                 raise SystemExit(f"chip_smoke: {what} launched K1 (all, tensor-core, "
-                                 f"backward) {k1}, want {want}")
+                                 f"backward), K5 and plain GroupNorms {k1}, want {want}")
+            launched_k5 += k1[3]
             return k1[0]
 
         seeded = []
         for _ in range(2):
             fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+            norm.LAUNCHES = norm.PLAIN_CUDA = 0
             t = time.perf_counter()
             seeded.append(svc.submit(SLICE_PROMPTS[1][0], seed=SERVE_SEED, timeout=900))
             log(f"[serve] seeded request (seed {SERVE_SEED}, lane 0 of its own batch): "
                 f"latency {time.perf_counter() - t:.4f} s; K1 launches {fa.LAUNCHES}, "
-                f"tensor-core {fa.LAUNCHES_MMA}")
+                f"tensor-core {fa.LAUNCHES_MMA}; K5 launches {norm.LAUNCHES}, plain "
+                f"GroupNorms {norm.PLAIN_CUDA}")
             launched += one_batch_k1("the seeded request")
         seed_diff = float(np.abs(seeded[0] - seeded[1]).max())
         log(f"[serve] the seeded request twice: max|diff| {seed_diff:.3e} (0 when the same "
             f"kernels run)")
 
         fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+        norm.LAUNCHES = norm.PLAIN_CUDA = 0
         t = time.perf_counter()
         code, head, body = http_post(f"{url}/generate", {"prompt": SLICE_PROMPTS[0][0]},
                                      timeout=900)
@@ -2550,7 +2767,8 @@ def phase_serve(torch, jen1) -> int:
             wav = (w.getnchannels(), w.getframerate(), w.getnframes())
         log(f"[serve] POST /generate over HTTP: {code} {head['Content-Type']} {wav}, "
             f"{len(body)} bytes, latency {http_wall:.4f} s; K1 launches {fa.LAUNCHES}, "
-            f"tensor-core {fa.LAUNCHES_MMA}")
+            f"tensor-core {fa.LAUNCHES_MMA}; K5 launches {norm.LAUNCHES}, plain GroupNorms "
+            f"{norm.PLAIN_CUDA}")
         launched += one_batch_k1("the HTTP request")
         phases = " ".join(f"{k}={v:.4f}" for k, v in svc.phase_totals.items())
         log(f"[serve] phase_totals (s): {phases}; stats {svc.stats}")
@@ -2568,7 +2786,9 @@ def phase_serve(torch, jen1) -> int:
                               batch_size=SERVE_BATCH, seconds=SLICE_SECONDS, use_gdm=True))
     log_kernel_time(by_name, "serve-profile", ("flash_fwd_mma",), "K1",
                     f"the profiled B={SERVE_BATCH} request")
-    return launched
+    log_kernel_time(by_name, "serve-profile", K5_KERNELS, "K5",
+                    f"the profiled B={SERVE_BATCH} request")
+    return launched, launched_k5
 
 
 # graphs: each case's requests as captured CUDA graphs against the same
@@ -2585,12 +2805,49 @@ GRAPH_REL_BAR = 1e-5
 GRAPH_LOAD_STEPS = 50
 
 
+COUNTED = "(K1, K4, K5, plain GroupNorm)"
+
+
 def counters():
-    """(K1, K4) launches so far."""
+    """(K1, K4, K5) launches and GroupNorms on the card's plain route so far."""
     from jen1_tpu_torch.ops import flash_attention as fa
     from jen1_tpu_torch.ops import int8_matmul as im
+    from jen1_tpu_torch.ops import norm
 
-    return fa.LAUNCHES, im.LAUNCHES
+    return fa.LAUNCHES, im.LAUNCHES, norm.LAUNCHES, norm.PLAIN_CUDA
+
+
+def zero_counters() -> None:
+    from jen1_tpu_torch.ops import flash_attention as fa
+    from jen1_tpu_torch.ops import int8_matmul as im
+    from jen1_tpu_torch.ops import norm
+
+    fa.LAUNCHES = im.LAUNCHES = norm.LAUNCHES = norm.PLAIN_CUDA = 0
+
+
+def group_norms(model, decoder_only: bool = False) -> int:
+    """K5 launches of one UNet forward of `model` on the main path: one per
+    GroupNorm module (each runs once a forward), without the down stack's in
+    a decoder-only forward (encoder reuse)."""
+    from jen1_tpu_torch.ops import norm
+
+    return sum(isinstance(m, norm.GroupNorm) and not (
+        decoder_only and any(part.startswith("downsample") for part in name.split(".")))
+        for name, m in model.named_modules())
+
+
+def count_group_norm_calls(model):
+    """A Counter of GroupNorm module calls in `model` (forward pre-hooks,
+    which run in eager forwards and in a remat backward's recomputation),
+    and a function that removes the hooks."""
+    import collections
+
+    from jen1_tpu_torch.ops import norm
+
+    calls = collections.Counter()
+    handles = [m.register_forward_pre_hook(lambda *_: calls.update(["calls"]))
+               for m in model.modules() if isinstance(m, norm.GroupNorm)]
+    return calls, lambda: [h.remove() for h in handles]
 
 
 def pool_bytes(torch, jen1) -> int:
@@ -2609,23 +2866,22 @@ def graph_case(torch, tag: str, jen1, request, want: tuple, profile_request,
     so the first graphed request captures: its wall beside the next graphed
     ones gives the capture's cost, and the memory its cache entry keeps
     allocated (static buffers) and the graphs' pool holds are logged. Then
-    `pairs` interleaved eager / graphed pairs: walls, peak memory, (K1, K4)
-    launches, which must equal
+    `pairs` interleaved eager / graphed pairs: walls, peak memory, the
+    `counters()` (K1, K4, K5 launches, GroupNorms on the card's plain
+    route), which must equal
     `want` in both modes, and every graphed audio and latent, the first
     request's (whose first step is the eager warm-up) included, against the
     first eager one. Then a PROFILE_STEPS request each way under
     torch.profiler (`profile_request`; the graphed one after an unprofiled
-    request that captures its key) for the busy share; the (K1, K4)
-    launches the trace lists must equal `profile_want` and the counters'
-    increase over that request, so that the counts added at replay are held
-    against the launches the card made. Returns the (K1, K4) launches of the
-    counted requests, eager and graphed."""
+    request that captures its key) for the busy share; the counters'
+    increase over that request must equal `profile_want`, and the (K1, K4,
+    K5) launches the trace lists the counted ones, so that the counts added
+    at replay are held against the launches the card made. Returns the
+    (K1, K4, K5) launches of the counted requests, eager and graphed."""
     import contextlib
 
     import numpy as np
 
-    from jen1_tpu_torch.ops import flash_attention as fa
-    from jen1_tpu_torch.ops import int8_matmul as im
     from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
 
     latents = []
@@ -2650,16 +2906,16 @@ def graph_case(torch, tag: str, jen1, request, want: tuple, profile_request,
         counts = tuple(b - a for a, b in zip(start, counters()))
         log(f"[{tag}] first graphed request (captures): wall {first_wall:.4f} s; graphs "
             f"captured {graphs.captures - c0} in {graphs.capture_seconds - s0:.4f} s, replays "
-            f"{graphs.replays - r0}; (K1, K4) launches {counts}; peak device memory "
+            f"{graphs.replays - r0}; {COUNTED} {counts}; peak device memory "
             f"{torch.cuda.max_memory_allocated()} bytes; the cache entry holds "
             f"{torch.cuda.memory_allocated() - held} bytes, the graphs' pool "
             f"{pool_bytes(torch, jen1)} bytes")
         if counts != want:
-            raise SystemExit(f"chip_smoke: {tag} first graphed request launched (K1, K4) "
+            raise SystemExit(f"chip_smoke: {tag} first graphed request launched {COUNTED} "
                              f"{counts}, want {want}")
         for mode in GRAPH_ORDER[:2 * pairs]:
             torch.cuda.reset_peak_memory_stats()
-            fa.LAUNCHES = im.LAUNCHES = 0
+            zero_counters()
             r0 = graphs.replays
             ctx = disable_graphs() if mode == "eager" else contextlib.nullcontext()
             with ctx:
@@ -2667,9 +2923,9 @@ def graph_case(torch, tag: str, jen1, request, want: tuple, profile_request,
             counts, peak = counters(), torch.cuda.max_memory_allocated()
             results[mode].append((wall, peak, out, latents[-1], graphs.replays - r0))
             log(f"[{tag}] {mode} request: wall {wall:.4f} s; peak device memory {peak} "
-                f"bytes; (K1, K4) launches {counts}; replays {graphs.replays - r0}")
+                f"bytes; {COUNTED} {counts}; replays {graphs.replays - r0}")
             if counts != want:
-                raise SystemExit(f"chip_smoke: {tag} {mode} request launched (K1, K4) "
+                raise SystemExit(f"chip_smoke: {tag} {mode} request launched {COUNTED} "
                                  f"{counts}, want {want}")
             if (mode == "graphed") != (graphs.replays > r0):
                 raise SystemExit(f"chip_smoke: {tag} {mode} request replayed "
@@ -2704,26 +2960,27 @@ def graph_case(torch, tag: str, jen1, request, want: tuple, profile_request,
             counted = tuple(b - a for a, b in zip(start, counters()))
         log_kernel_time(by_name, f"{tag}-profile", ("flash_fwd", "int8w_"), "K1 and K4",
                         f"the {mode} request")
+        log_kernel_time(by_name, f"{tag}-profile", K5_KERNELS, "K5", f"the {mode} request")
         traced = trace_launches(by_name)
-        log(f"[{tag}-profile] {mode} request (K1, K4) launches: traced {traced}, counted "
+        log(f"[{tag}-profile] {mode} request {COUNTED} launches: traced {traced}, counted "
             f"{counted}, want {profile_want}")
-        if not traced == counted == profile_want:
-            raise SystemExit(f"chip_smoke: {tag} {mode} profiled request launched (K1, K4) "
+        if not (traced == counted[:3] and counted == profile_want):
+            raise SystemExit(f"chip_smoke: {tag} {mode} profiled request launched {COUNTED} "
                              f"{traced} by its trace, {counted} by the counters, want "
                              f"{profile_want}")
     n = 1 + 2 * pairs
-    return want[0] * n, want[1] * n
+    return want[0] * n, want[1] * n, want[2] * n
 
 
-def phase_graphs(torch, jen1) -> int:
+def phase_graphs(torch, jen1) -> tuple:
     """Compiled sampling on the phase-main Jen1 (longform_config(), 30 s,
     SLICE_STEPS steps): graph_case for the text_guided VDM request (B=1),
     music_inpaint and music_cont (VDM; the continuation causal) and GDM DDIM
     at encoder_reuse 2 (one pair each), and GenerationService at
     B=SERVE_BATCH (a seeded request, lane 0 of its padded batch; its
     profiled request a direct B=SERVE_BATCH generate()); then the service
-    under load, two keys submitted at once. Returns the counted K1
-    launches."""
+    under load, two keys submitted at once. Every GroupNorm runs K5, none
+    the plain route. Returns the counted K1 and K5 launches."""
     import threading
 
     import numpy as np
@@ -2738,15 +2995,23 @@ def phase_graphs(torch, jen1) -> int:
     def requester(steps, **kw):
         return lambda: jen1.generate(prompt, steps=steps, **base, **kw)
 
+    from jen1_tpu_torch.diffusion.gdm import reuse_schedule
+
+    gn, gn_decoder = group_norms(jen1.model), group_norms(jen1.model, decoder_only=True)
+
     def whole(steps):
-        return 2 * steps
+        # (K1, K4, K5, plain GroupNorm): one whole forward a step
+        return 2 * steps, 0, gn * steps, 0
 
     def reuse(steps):
-        return reuse_k1(steps, 2, final_full=True)
+        marks = reuse_schedule(steps, 2, True)
+        return (reuse_k1(steps, 2, final_full=True), 0,
+                gn * sum(marks) + gn_decoder * (len(marks) - sum(marks)), 0)
 
-    k1 = 0
-    # (tag, generate() arguments, K1 per request of so many steps, pairs):
-    # the tasks and encoder reuse run one pair each, to keep the script's time
+    k1 = k5 = 0
+    # (tag, generate() arguments, counts per request of so many steps,
+    # pairs): the tasks and encoder reuse run one pair each, to keep the
+    # script's time
     cases = [
         ("graphs-vdm", {}, whole, GRAPH_PAIRS),
         ("graphs-inpaint", dict(task="music_inpaint", init_audio=clip,
@@ -2755,22 +3020,25 @@ def phase_graphs(torch, jen1) -> int:
          whole, 1),
         ("graphs-reuse", dict(use_gdm=True, encoder_reuse=2), reuse, 1),
     ]
-    for tag, kw, k1_of, pairs in cases:
-        k1 += graph_case(torch, tag, jen1, requester(SLICE_STEPS, **kw), (k1_of(SLICE_STEPS), 0),
-                         requester(PROFILE_STEPS, **kw), (k1_of(PROFILE_STEPS), 0), pairs)[0]
+    for tag, kw, counts_of, pairs in cases:
+        launched = graph_case(torch, tag, jen1, requester(SLICE_STEPS, **kw),
+                              counts_of(SLICE_STEPS), requester(PROFILE_STEPS, **kw),
+                              counts_of(PROFILE_STEPS), pairs)
+        k1, k5 = k1 + launched[0], k5 + launched[2]
 
     svc = GenerationService(jen1, max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
                             default_seconds=SLICE_SECONDS, default_steps=SLICE_STEPS)
     try:
-        k1 += graph_case(
+        launched = graph_case(
             torch, "graphs-serve", jen1,
             lambda: svc.submit(SLICE_PROMPTS[1][0], seed=SERVE_SEED, timeout=900),
-            (2 * SLICE_STEPS, 0),
+            whole(SLICE_STEPS),
             # profiled without the service's batching wait (max_wait_ms)
             lambda: jen1.generate([SLICE_PROMPTS[1][0]] + [""] * (SERVE_BATCH - 1),
                                   seed=SERVE_SEED, steps=PROFILE_STEPS, batch_size=SERVE_BATCH,
                                   seconds=SLICE_SECONDS, use_gdm=True),
-            (2 * PROFILE_STEPS, 0))[0]
+            whole(PROFILE_STEPS))
+        k1, k5 = k1 + launched[0], k5 + launched[2]
         # under load: a second key captured while the first batch is fetched
         jen1._sample_cache.clear()
         graphs = jen1.graphs
@@ -2790,21 +3058,21 @@ def phase_graphs(torch, jen1) -> int:
         for t in threads:
             t.join()
         span = time.perf_counter() - t0
-        launched = counters()[0] - start[0]
-        want = 2 * SLICE_STEPS + 2 * GRAPH_LOAD_STEPS
+        launched = tuple(b - a for a, b in zip(start, counters()))
+        want = tuple(a + b for a, b in zip(whole(SLICE_STEPS), whole(GRAPH_LOAD_STEPS)))
         ok = all(r is not None and r.shape == (2, SLICE_SECONDS * sr) and np.isfinite(r).all()
                  for r in results)
         log(f"[graphs-serve] under load: {len(results)} requests ({SERVE_BATCH} at "
             f"{SLICE_STEPS} steps, {SERVE_BATCH} at {GRAPH_LOAD_STEPS}) in {span:.4f} s; "
             f"batches {svc.stats['batches'] - before['batches']}, graphs captured "
-            f"{graphs.captures - c0}, errors {svc.stats['errors'] - before['errors']}; K1 "
-            f"launches {launched} (want {want})")
+            f"{graphs.captures - c0}, errors {svc.stats['errors'] - before['errors']}; "
+            f"{COUNTED} {launched} (want {want})")
         if not ok or launched != want or svc.stats["errors"] != before["errors"]:
             raise SystemExit("chip_smoke: the loaded service failed while capturing")
-        k1 += launched
+        k1, k5 = k1 + launched[0], k5 + launched[2]
     finally:
         svc.close()
-    return k1
+    return k1, k5
 
 
 def train_remat(torch, cfg, trainer, state, batch) -> tuple:
@@ -4285,14 +4553,16 @@ def main() -> int:
     k1_generation += phase_long(torch, jen1)
     k1_generation += phase_bf16_weights(torch, jen1)
     k1_generation += phase_reuse(torch, jen1)
-    k1_generation += phase_serve(torch, jen1)
-    k1_generation += phase_graphs(torch, jen1)
+    k1_serve, k5 = phase_serve(torch, jen1)
+    k1_graphs, k5_graphs = phase_graphs(torch, jen1)
+    k1_generation, k5 = k1_generation + k1_serve + k1_graphs, k5 + k5_graphs
     k1_mesh, mesh_train = phase_mesh(torch, jen1, main_outs, main_walls)
     k1_generation += k1_mesh
     del jen1
     gc.collect()
     torch.cuda.empty_cache()
-    k4 = phase_flagship(torch)
+    k4, k5_flagship = phase_flagship(torch)
+    k5 += k5_flagship
     gc.collect()
     torch.cuda.empty_cache()
     k1_train, k2, k3 = (a + b for a, b in zip(phase_train(torch), mesh_train))
@@ -4311,7 +4581,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_generation += phase_stft(torch)
     phase_eval(torch, main_outs, snake_outs)
-    for row, launches in zip(rows, (k1_generation + k1_train, k2, k3, k4)):
+    for row, launches in zip(rows, (k1_generation + k1_train, k2, k3, k4, k5)):
         row["launches"] = launches
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,13 +22,14 @@ from torch import nn
 from jen1_tpu_torch.ops.attention import Attention
 from jen1_tpu_torch.ops.conv import Downsample1d, OmniConv1d, Upsample1d
 from jen1_tpu_torch.ops.linear import Linear
-from jen1_tpu_torch.ops.norm import GroupNorm
+from jen1_tpu_torch.ops.norm import GroupNorm, film_act
 from jen1_tpu_torch.ops.snake import Snake1d
 from jen1_tpu_torch.parallel import sp as seq
 
 
 class ConvBlock1d(nn.Module):
-    """GroupNorm -> (FiLM) -> SiLU or Snake -> OmniConv1d."""
+    """GroupNorm -> (FiLM) -> SiLU or Snake -> OmniConv1d. The norm, FiLM
+    and SiLU are one call (`ops/norm.py::group_norm_act`)."""
 
     def __init__(
         self,
@@ -54,12 +55,13 @@ class ConvBlock1d(nn.Module):
         scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         causal: bool = False,
     ) -> torch.Tensor:
+        act = "silu" if self.snake is None else None
         if self.groupnorm is not None:
-            x = self.groupnorm(x)
-        if scale_shift is not None:
-            scale, shift = scale_shift
-            x = x * (scale + 1.0) + shift
-        x = F.silu(x) if self.snake is None else self.snake(x)
+            x = self.groupnorm(x, scale_shift, act)
+        else:
+            x = film_act(x, scale_shift, act)
+        if self.snake is not None:
+            x = self.snake(x)
         return self.project(x, causal=causal)
 
 

@@ -3,10 +3,17 @@ jen1_tpu/ops/conv.py).
 
 Weights are stored in torch layout, fp32, and cast to the activation dtype
 at use: Conv1d (out, in, K), ConvTranspose1d (in, out, K). The functions
-transpose to (B, C, L) for `F.conv1d` and back. A stride-1 `OmniConv1d`
-given an int8 kernel (`ops/int8_matmul.py::attach_qweights`) runs
-`conv1d_int8w` instead. `fp32_precision` is the port's counterpart of the
-JAX package's `Precision.HIGHEST` for fp32 products.
+hand the convolution a channels-last view of (B, L, C), (B, C, 1, L) with
+NHWC strides, and a weight cast and laid out channels-last in one copy
+(`_weight_cl`), so cuDNN reads and writes (B, L, C) with no transposing
+copy before or after (a 3-D `F.conv1d` makes its input (B, C, L)-contiguous
+first); symmetric padding is the convolution's own, a causal conv pads in
+(B, L, C). A contiguous input gives a contiguous (B, L', C) output.
+
+A stride-1 `OmniConv1d` given an int8 kernel
+(`ops/int8_matmul.py::attach_qweights`) runs `conv1d_int8w` instead.
+`fp32_precision` is the port's counterpart of the JAX package's
+`Precision.HIGHEST` for fp32 products.
 
 Under sequence parallelism (parallel/sp.py) the input is this rank's frames
 of the length: each conv first takes the frames its padding implies from
@@ -54,6 +61,22 @@ def _cast(w: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if w is None else w.to(dtype)
 
 
+def _weight_cl(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A (O, I, K) weight as (O, I, 1, K) of `dtype`, channels-last (cuDNN's
+    KRSC order), in one copy."""
+    return w.unsqueeze(2).to(dtype, memory_format=torch.channels_last)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, C) as the (B, C, 1, L) view with channels-last strides."""
+    return x.transpose(1, 2).unsqueeze(2)
+
+
+def _blc(y: torch.Tensor) -> torch.Tensor:
+    """A (B, C, 1, L) convolution output back to (B, L, C) (a view)."""
+    return y.squeeze(2).transpose(1, 2)
+
+
 def conv1d(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -75,11 +98,14 @@ def conv1d(
         # its last output's window end minus its own length
         x = seq.halo(x, pads[0], pad + 1 - stride - pads[0])
         pads = (0, 0)
-    xt = F.pad(x.transpose(1, 2), pads)
-    y = F.conv1d(
-        xt, weight.to(x.dtype), _cast(bias, x.dtype), stride=stride, dilation=dilation
+    elif causal and pad:
+        x = F.pad(x, (0, 0, pad, 0))
+        pads = (0, 0)
+    y = F.conv2d(
+        _nhwc(x), _weight_cl(weight, x.dtype), _cast(bias, x.dtype),
+        stride=(1, stride), padding=(0, pads[0]), dilation=(1, dilation),
     )
-    return y.transpose(1, 2)
+    return _blc(y)
 
 
 def conv_transpose1d(
@@ -99,17 +125,17 @@ def conv_transpose1d(
     sharded = seq.active() is not None
     if sharded:
         x = seq.halo(x, 1, 1)
-    y = F.conv_transpose1d(
-        x.transpose(1, 2),
-        weight.to(x.dtype),
+    y = _blc(F.conv_transpose2d(
+        _nhwc(x),
+        _weight_cl(weight, x.dtype),
         _cast(bias, x.dtype),
-        stride=stride,
-        padding=padding,
-        output_padding=output_padding,
-    )
+        stride=(1, stride),
+        padding=(0, padding),
+        output_padding=(0, output_padding),
+    ))
     if sharded:
-        y = y[:, :, stride:stride + length * stride]
-    return y.transpose(1, 2)
+        y = y[:, stride:stride + length * stride]
+    return y
 
 
 class OmniConv1d(nn.Module):

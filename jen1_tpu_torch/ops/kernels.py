@@ -120,5 +120,12 @@ def library() -> ctypes.CDLL:
         # K4: x, w8, scale, out; m, k, n, dtype, splits, chunk; stream
         lib.jen1_int8w_matmul.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.jen1_int8w_matmul.restype = i32
+        # K5: x, out; x's batch stride; gamma, beta, scale, shift; their
+        # batch strides; partial; batch, length, channels, groups, resident,
+        # slices, rows, splits, ct, r, dtype, vec, silu; eps; stream
+        i64 = ctypes.c_longlong
+        lib.jen1_group_norm.argtypes = ([ptr] * 2 + [i64] + [ptr] * 4 + [i64] * 2 + [ptr]
+                                        + [i32] * 13 + [f32, ptr])
+        lib.jen1_group_norm.restype = i32
         _LIB = lib
     return _LIB

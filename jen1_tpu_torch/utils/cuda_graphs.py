@@ -14,17 +14,21 @@ which does that step's work, and then captures it as a
 `torch.cuda.CUDAGraph` on the same stream (one per device for the
 process); every later call replays the graph. On the CPU, and inside `disable_graphs()`, every call runs the
 function eagerly on the same buffers. A failed capture raises: on the card
-nothing falls back to the eager step. The program keeps no reference to the
+nothing falls back to the eager step. It leaves the card as it found it
+(`_end_failed_capture`), so that a service goes on after one failed request.
+The program keeps no reference to the
 function, so a sampler that owns its programs forms no reference cycle and
 frees its graphs and buffers as soon as it is dropped.
 
 The programs of one owner (a `Jen1`) share one memory pool (`GraphSet`),
-since only one of them runs at a time. Captures use the thread-local capture
+since only one of them runs at a time; after a failed capture, the ones
+captured later share a second. Captures use the thread-local capture
 mode, so that other threads (a service's completers copying results to the
 host) may call the CUDA API while one thread captures.
 
 Launch counters. The kernel wrappers count their launches in Python
-(`COUNTERS` of ops/flash_attention.py and ops/int8_matmul.py), which under a
+(`COUNTERS` of ops/flash_attention.py, ops/int8_matmul.py and ops/norm.py,
+whose `PLAIN_CUDA` counts its plain routes on the card), which under a
 graph runs only at capture. A program records the counters' deltas over its
 capture, takes them back (a capture launches nothing) and adds them at every
 replay, so the counts stay the kernels' launches on the card.
@@ -76,10 +80,34 @@ def _side_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 def _counters() -> Dict[Tuple[object, str], int]:
-    from jen1_tpu_torch.ops import flash_attention, int8_matmul
+    from jen1_tpu_torch.ops import flash_attention, int8_matmul, norm
 
     return {(mod, name): getattr(mod, name)
-            for mod in (flash_attention, int8_matmul) for name in mod.COUNTERS}
+            for mod in (flash_attention, int8_matmul, norm) for name in mod.COUNTERS}
+
+
+def _end_failed_capture(stream: "torch.cuda.Stream", side: "torch.cuda.Stream", pool) -> None:
+    """Undo what a capture leaves behind when ending it raised (a step that
+    synchronised invalidates it): torch.cuda.graph does not restore the
+    current stream, which stays `side`; the caching allocator goes on
+    recording into `pool` as if the capture ran, and while it does, blocks
+    freed with stream uses are never reused; and the device's default
+    generator stays marked as capturing, so that every later random draw on
+    the device raises ("Offset increment outside graph capture"). Restores
+    `stream`, ends the allocator's recording into `pool` and releases the
+    capture's hold on it (PyTorch's own calls for a pool, as
+    `torch.cuda.use_mem_pool` makes them), and ends the generator's capture
+    by one that succeeds: a graph of one in-place add on `side`, in a pool
+    of its own, dropped at once. `pool` still refuses later captures
+    (torch 2.11), so the caller captures into another."""
+    device = stream.device.index
+    torch.cuda.set_stream(stream)
+    torch._C._cuda_endAllocateToPool(device, pool)
+    torch._C._cuda_releasePool(device, pool)
+    tick = torch.zeros(1, device=stream.device)
+    with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side,
+                          capture_error_mode="thread_local"):
+        tick.add_(1)
 
 
 class GraphSet:
@@ -96,6 +124,11 @@ class GraphSet:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
+
+    def new_pool(self) -> None:
+        """Capture from now on into a fresh pool; the graphs captured so far
+        keep theirs."""
+        self._pool = None
 
 
 class StepProgram:
@@ -136,6 +169,12 @@ class StepProgram:
             with torch.cuda.graph(graph, pool=self.graphs.pool(), stream=side,
                                   capture_error_mode="thread_local"):
                 fn()
+        except BaseException:
+            # `side` still current: torch.cuda.graph's exit did not end the capture
+            if torch.cuda.current_stream(self.device) == side:
+                _end_failed_capture(current, side, self.graphs.pool())
+                self.graphs.new_pool()
+            raise
         finally:
             after = _counters()
             for (mod, name), n in before.items():

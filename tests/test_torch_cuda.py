@@ -20,6 +20,14 @@ kernels are held against their plain versions at the bars of chip_smoke.py:
   * Samplers as CUDA graphs (utils/cuda_graphs.py): a graphed request
     against the same request under disable_graphs() within 1e-5 of
     max|latent| (the same kernels on the same inputs; equal bits expected).
+  * K5 (GroupNorm + FiLM + SiLU): against its plain version on the card
+    elementwise within one bf16 step (2^-7 relative; 2^-18 in fp32) of
+    each term the difference passes through (the FiLM's product and sum,
+    twice for the product's two roundings, or GroupNorm's output where
+    SiLU follows it; SiLU carries these at its slope, at most 1.1; the
+    output), plus 1e-6; in bf16
+    at most 1e-3 of the elements differ at all (only where the two fp32
+    statistics round to neighbouring values).
 """
 
 import pytest
@@ -27,6 +35,7 @@ import torch
 
 from jen1_tpu_torch.ops import flash_attention as fa
 from jen1_tpu_torch.ops import int8_matmul as im
+from jen1_tpu_torch.ops import norm
 
 pytestmark = pytest.mark.cuda
 
@@ -760,6 +769,151 @@ def test_nccl_world1_fsdp_train_step_matches_plain(cuda_device):
         dist.destroy_process_group()
 
 
+
+# ------------------------------------------------------ K5: GroupNorm + FiLM + SiLU
+
+# (B, L, C, groups, eps): the UNet's level 0 (C 128, and 257 at the input
+# with the context channels), level 1, a deep level and the bottleneck's
+# transformer norm, all at the B=8 CFG batch; then one launch with scalar
+# accesses, two launches with two passes over the channels, and level 1's
+# two-launch shape
+GN_SHAPES = [(8, 4500, 128, 1, 1e-5), (8, 4500, 128, 8, 1e-5), (8, 4500, 257, 1, 1e-5),
+             (8, 1125, 128, 8, 1e-5), (8, 35, 512, 8, 1e-5), (8, 2, 1024, 32, 1e-6),
+             (8, 5, 257, 1, 1e-5), (2, 300, 5120, 8, 1e-5), (8, 1125, 256, 8, 1e-5)]
+
+
+def gn_inputs(device, b, length, c, dtype, seed, crop=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = 1.5 + 2.0 * torch.randn((b, length + crop, c), generator=g, device=device)
+    weight = 1.0 + 0.2 * torch.randn(c, generator=g, device=device)
+    bias = 0.3 * torch.randn(c, generator=g, device=device)
+    film = tuple(torch.randn((b, 1, c), generator=g, device=device).to(dtype) for _ in range(2))
+    return x.to(dtype)[:, crop:], weight, bias, film
+
+
+def carried_terms(x, groups, weight, bias, eps, film, act):
+    """The terms before the output that a rounding step passes through: the
+    FiLM's (GroupNorm's output scaled, the product, the sum), or with no FiLM
+    GroupNorm's output when SiLU follows; SiLU carries them at its slope, at
+    most 1.1. 0 where the output is GroupNorm's own."""
+    gn = norm.group_norm_act_plain(x, groups, weight, bias, eps).float()
+    carried = 0.0
+    if film is not None:
+        prod = gn * (film[0] + 1.0).float()
+        carried = 2 * prod.abs() + (prod + film[1].float()).abs()
+    if act == "silu":
+        carried = 1.1 * (gn.abs() if film is None else carried)
+    return carried
+
+
+def check_group_norm(x, groups, weight, bias, eps, film, act):
+    before = norm.LAUNCHES
+    out = norm.group_norm_act_cuda(x, groups, weight, bias, eps, film, act)
+    torch.cuda.synchronize()
+    assert norm.LAUNCHES == before + 1 and out.is_contiguous()
+    ref = norm.group_norm_act_plain(x, groups, weight, bias, eps, film, act)
+    terms = ref.float().abs() + carried_terms(x, groups, weight, bias, eps, film, act)
+    rel = 2**-7 if x.dtype == torch.bfloat16 else 2**-18
+    diff = (out.float() - ref.float()).abs()
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert bool((diff <= rel * terms + 1e-6).all()), f"max|diff| {diff.max().item():.3e}"
+    if x.dtype == torch.bfloat16:
+        assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("film_act", [(True, "silu"), (False, None), (True, None),
+                                      (False, "silu")])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_kernel_matches_plain_version(cuda_device, shape, film_act, dtype):
+    """K5 at the main path's shapes: one launch (rows in registers) and
+    two (long rows split over blocks), 16-byte and scalar (C 257) accesses."""
+    b, length, c, groups, eps = shape
+    x, weight, bias, film = gn_inputs(cuda_device, b, length, c, dtype, seed=length + c)
+    check_group_norm(x, groups, weight, bias, eps, film if film_act[0] else None, film_act[1])
+
+
+@pytest.mark.parametrize("length", [35, 4500])
+def test_group_norm_kernel_batch_strided_input(cuda_device, length):
+    """A cropped input (each example's (L, C) dense, the batch stride
+    longer), on both launch shapes."""
+    for crop in (3, 8):
+        x, weight, bias, film = gn_inputs(cuda_device, 8, length, 128, torch.bfloat16,
+                                          seed=crop, crop=crop)
+        assert not x.is_contiguous()
+        check_group_norm(x, 8, weight, bias, 1e-5, film, "silu")
+
+
+def test_group_norm_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, weight, bias, film = gn_inputs(cuda_device, 2, 16, 64, torch.bfloat16, seed=0)
+    for bad in (dict(x=x.transpose(1, 2).contiguous().transpose(1, 2)),
+                dict(x=x.cpu()), dict(x=x.half()), dict(weight=weight.to(torch.bfloat16)),
+                dict(groups=5), dict(film=(film[0].float(), film[1])), dict(act="gelu")):
+        kw = {**dict(x=x, groups=8, weight=weight, bias=bias, film=film, act="silu"), **bad}
+        with pytest.raises(ValueError):
+            norm.group_norm_act_cuda(kw["x"], kw["groups"], kw["weight"], kw["bias"], 1e-5,
+                                     kw["film"], kw["act"])
+
+
+@pytest.mark.parametrize("shape", [(8, 35, 512, 8), (8, 4500, 128, 8)])
+def test_group_norm_kernel_checks_its_plan(cuda_device, monkeypatch, shape):
+    """The kernel takes its grid and blocks from launch_plan and refuses one
+    that does not cover the rows and channels, on both launch shapes."""
+    b, length, c, groups = shape
+    x, weight, bias, film = gn_inputs(cuda_device, b, length, c, torch.bfloat16, seed=1)
+    plan = norm.launch_plan(b, length, c, groups, 2, 8)
+    for bad in (dict(ct=plan.ct + 1), dict(r=0), dict(r=norm.MAX_THREADS),
+                dict(ct=plan.ct // 2, r=plan.r * 2) if plan.resident else dict(ct=c)):
+        monkeypatch.setattr(norm, "launch_plan", lambda *a, bad=bad: plan._replace(**bad))
+        with pytest.raises(RuntimeError):
+            norm.group_norm_act_cuda(x, groups, weight, bias, 1e-5, film, "silu")
+
+
+def gn_modules(jen1) -> int:
+    return sum(isinstance(m, norm.GroupNorm) for m in jen1.model.modules())
+
+
+def test_group_norm_launches_counted_by_replay(cuda_device):
+    """K5 runs every GroupNorm of a sampling step, counted at every replay
+    (the capture's counts taken back): one launch per GroupNorm module per
+    UNet forward, one forward per step; no plain route on the card."""
+    jen1 = tiny_jen1s()["cuda"]
+    kw = dict(seed=5, steps=4, seconds=13, decode=False)
+    for _ in range(2):
+        before = (norm.LAUNCHES, norm.PLAIN_CUDA)
+        jen1.generate("a beautiful song", **kw)
+        assert (norm.LAUNCHES - before[0], norm.PLAIN_CUDA - before[1]) == (4 * gn_modules(jen1), 0)
+    assert jen1.graphs.captures == 1 and jen1.graphs.replays == 3 + 4
+
+
+def test_graphed_bf16_step_launches_no_layout_kernels(cuda_device):
+    """A bf16-compute tiny Jen1's graphed sampling steps under the profiler:
+    no cuDNN NCHW->NHWC transpose and no PyTorch GroupNorm moments, and K5's
+    kernels are there."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
+    from jen1_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg.model_config = dataclasses.replace(cfg.model_config, dtype="bfloat16")
+    t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
+                       device="cuda")
+    jen1 = Jen1(sample_rate=1600, config=cfg, codec=tiny_codecs()[1],
+                conditioner=MultiConditioner({"prompt": t5}), device="cuda")
+    kw = dict(seed=5, steps=4, seconds=13, decode=False)
+    jen1.generate("a beautiful song", **kw)  # captures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        jen1.generate("a beautiful song", **kw)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "nchwToNhwc" in n or "RowwiseMoments" in n], names
+    assert any("gn_" in n for n in names), names
+
+
 GRAPH_REL_BAR = 1e-5  # of max|latent|: graphed against eager on the card
 
 
@@ -816,3 +970,36 @@ def test_capture_error_propagates(cuda_device, monkeypatch):
         jen1.generate("a beautiful song", seed=5, steps=2, seconds=13, decode=False)
     assert jen1.graphs.captures == 0
     assert all(p.graph is None for s in jen1._sample_cache.values() for p in s.programs)
+
+
+def test_failed_capture_leaves_the_card_usable(cuda_device, monkeypatch):
+    """After a capture that failed, the request's stream is the current one
+    again and the device's default generator draws outside a capture: a
+    module initialises on the card, and the same Jen1's next request
+    captures its graphs and matches the eager one."""
+    from jen1_tpu_torch.diffusion import vdm
+    from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
+
+    jen1 = tiny_jen1s()["cuda"]
+    call = vdm.VDM._call_model
+
+    def syncing(self, *args, **kw):
+        out = call(self, *args, **kw)
+        out.sum().item()
+        return out
+
+    kw = dict(seed=5, steps=2, seconds=13, decode=False)
+    stream = torch.cuda.current_stream()
+    with monkeypatch.context() as m:
+        m.setattr(vdm.VDM, "_call_model", syncing)
+        with pytest.raises(RuntimeError):
+            jen1.generate("a beautiful song", **kw)
+    assert torch.cuda.current_stream() == stream
+    conv = torch.nn.Conv1d(8, 8, 3, device="cuda")  # drawn from the default generator
+    assert bool(torch.isfinite(conv.weight).all())
+    assert bool(torch.isfinite(torch.randn(16, device="cuda")).all())
+    graphed = jen1.generate("a beautiful song", **kw)
+    with disable_graphs():
+        eager = jen1.generate("a beautiful song", **kw)
+    assert jen1.graphs.captures == 1
+    assert float(abs(graphed - eager).max()) <= GRAPH_REL_BAR * float(abs(eager).max())
