@@ -18,7 +18,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    single bf16 dS would shift; K1 timed at the generation
                    shape, at N = 4500, at the serving batch (B*H 64), at
                    the STFT UNet's level 1 (N = 1407; checked there too) and
-                   at a tp=2 rank's heads (B*H 8), K2/K3 at the training
+                   at a tp=2 rank's heads (B*H 8), at Stable Audio Open's
+                   self-attention (B*H 384, N 1025, D 64; checked there
+                   too, forward only), K2/K3 at the training
                    shape and a tp=2 rank's (B*H 16; K1 there too), both
                    causal values, in device time
                    (torch.profiler; CUDA events beside it), beside their plain
@@ -211,8 +213,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
                    30 s): losses and gradient leaves every step, walls,
                    peak memory, K1/K2/K3 4/4/4, the gathered checkpoint's
                    save wall.
+ 33. sao         - Jen1(config=stable_audio_open_config()) at the published
+                   widths (1,056,828,544 DiT parameters): sao-batch's
+                   request (B = 8 clips of 2,097,152 samples, 100 VDM steps,
+                   batch CFG 7), once to capture its graph, then once
+                   replayed with the counters zeroed: every step one DiT
+                   forward, `depth` self-attentions on the flash route and
+                   as many K1 launches, all tensor-core, none plain; (8, 2,
+                   2,097,152) finite audio. A PROFILE_STEPS request (its
+                   graph captured outside the trace) whose traced
+                   flash_fwd_mma_kernel launches must equal the counted ones.
 The phases run in the order small-*, main .. serve, graphs, mesh, flagship,
-train, lora, wav-train, composer, snake, stft, eval (small-data, small-lora,
+train, lora, wav-train, composer, snake, stft, eval, sao (small-data, small-lora,
 small-composer, small-features and small-mesh after small-serve). On the
 card generate() runs the VDM sampler and DDIM as captured CUDA graphs
 (jen1_tpu_torch/utils/cuda_graphs.py) unless disable_graphs() is active, so
@@ -383,6 +395,19 @@ STFT_N = 1407
 # B*H 16 (CFG-doubled batch 2 x 8 heads) and training's 32
 TP2_GEN_BH = 8
 TP2_TRAIN_BH = 16
+# Stable Audio Open (phase sao, sao-batch's request): B = 8 clips of the
+# published window, CFG-doubled, through 24 heads of 64 over 1024 latent
+# frames and the prepended global token
+SAO_DIT_PARAMS = 1_056_828_544
+SAO_BATCH = 8
+SAO_STEPS = 100
+SAO_SAMPLES = 2_097_152
+SAO_BH, SAO_N, SAO_D = 2 * SAO_BATCH * 24, 1025, 64
+SAO_PROMPTS = ["rain on a tin roof with distant thunder", "a choir singing in a cathedral",
+               "an 808 drum loop at 120 BPM", "a cello playing a slow melody",
+               "birds in a forest at dawn", "a synth pad with a long reverb tail",
+               "a crowd cheering in a stadium", "a jazz trio, brushed drums and upright bass"]
+SAO_SEED = 17
 MESH_TRAIN_WARMUP = 2
 MESH_TRAIN_STEPS = 3
 SMALL_MESH_STEPS = 2
@@ -614,8 +639,11 @@ def phase_kernels(torch, clock_hz: float) -> list:
     # a tp=2 rank's generation heads (its training heads, B*H 16, are above)
     cases += [(TP2_GEN_BH, 1125, 16, dt, c) for dt in ("bfloat16", "float32")
               for c in (False, True)]
-    k1_err = serve_err = stft_err = tp2_err = 0.0
-    for bh, n, d, dt, causal in cases:
+    # Stable Audio Open's self-attention (phase sao); the DiT is not trained
+    # by the port, so its shape is not among the backward cases
+    sao_cases = [(SAO_BH, SAO_N, SAO_D, dt, False) for dt in ("bfloat16", "float32")]
+    k1_err = serve_err = stft_err = tp2_err = sao_err = 0.0
+    for bh, n, d, dt, causal in cases + sao_cases:
         q, k, v = qkv(bh, n, d, dtypes[dt])
         before = fa.LAUNCHES_MMA
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -644,6 +672,8 @@ def phase_kernels(torch, clock_hz: float) -> list:
             stft_err = max(err_o, err_lse)
         if (bh, n, d, dt, causal) == (TP2_GEN_BH, 1125, 16, "bfloat16", False):
             tp2_err = max(err_o, err_lse)
+        if (bh, n, d, dt, causal) == (SAO_BH, SAO_N, SAO_D, "bfloat16", False):
+            sao_err = max(err_o, err_lse)
     for bh, n, d, dt, causal in cases:
         check_bwd(torch, fa, gen, bh, n, d, dt, dtypes[dt], causal)
     dropped_tile_shift(torch, fa, gen, 1125, 16)
@@ -652,7 +682,8 @@ def phase_kernels(torch, clock_hz: float) -> list:
     for n in (128, 563, 1125):
         k2_shifts(torch, fa, gen, n, 16)
 
-    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err, stft_err, tp2_err)]
+    rows = [time_forward(torch, F, fa, qkv, clock_hz, k1_err, serve_err, stft_err, tp2_err,
+                         sao_err)]
     rows += time_backward(torch, F, fa, gen, clock_hz)
     rows.append(int8_kernel_row(torch))
     rows.append(group_norm_kernel_row(torch))
@@ -660,22 +691,23 @@ def phase_kernels(torch, clock_hz: float) -> list:
 
 
 def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: float,
-                 stft_err: float, tp2_err: float) -> dict:
+                 stft_err: float, tp2_err: float, sao_err: float) -> dict:
     """K1 at the generation shape (B*H = 16: CFG-doubled batch 2 x 8 heads,
     N = 1125, D = 16, bf16), at N = 4500 (a 2-minute window), at the
     serving batch (B*H = SERVE_BH at N = 1125), at the STFT UNet's level 1
-    (N = STFT_N) and at a tp=2 rank's generation heads (B*H = TP2_GEN_BH),
-    both causal values, by device time beside the CUDA-event time of
-    back-to-back calls, its plain version and SDPA's forward. The record row
-    is the generation shape's, non-causal; its "serving_shape",
-    "stft_shape" and "tp2_shape" entries hold those shapes'."""
+    (N = STFT_N), at a tp=2 rank's generation heads (B*H = TP2_GEN_BH) and
+    at Stable Audio Open's self-attention (B*H = SAO_BH, N = SAO_N, D =
+    SAO_D), both causal values, by device time beside the CUDA-event time
+    of back-to-back calls, its plain version and SDPA's forward. The record
+    row is the generation shape's, non-causal; its "serving_shape",
+    "stft_shape", "tp2_shape" and "sao_shape" entries hold those shapes'."""
     def sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     row = None
     shapes = {}
-    for bh, n in ((16, 1125), (16, 4500), (SERVE_BH, 1125), (16, STFT_N), (TP2_GEN_BH, 1125)):
-        d = 16
+    for bh, n, d in ((16, 1125, 16), (16, 4500, 16), (SERVE_BH, 1125, 16), (16, STFT_N, 16),
+                     (TP2_GEN_BH, 1125, 16), (SAO_BH, SAO_N, SAO_D)):
         q, k, v = qkv(bh, n, d, torch.bfloat16)
         for causal in (False, True):
             args = [(q, k, v, causal)]
@@ -699,7 +731,8 @@ def time_forward(torch, F, fa, qkv, clock_hz: float, err: float, serve_err: floa
                 f"events {event_ms:.5f} (K1) and {library_event_ms:.5f} (sdpa) ms")
             extra = {(SERVE_BH, 1125): ("serving_shape", serve_err),
                      (16, STFT_N): ("stft_shape", stft_err),
-                     (TP2_GEN_BH, 1125): ("tp2_shape", tp2_err)}
+                     (TP2_GEN_BH, 1125): ("tp2_shape", tp2_err),
+                     (SAO_BH, SAO_N): ("sao_shape", sao_err)}
             if (bh, n) in extra and not causal:
                 key, shape_err = extra[(bh, n)]
                 shapes[key] = {"bh": bh, "n": n, "d": d, "ms": ms, "plain_ms": plain_ms,
@@ -4211,6 +4244,88 @@ def phase_eval(torch, main_outs, snake_outs) -> None:
         raise SystemExit("chip_smoke: eval: the card's report disagrees with the CPU's")
 
 
+def dit_counts():
+    """(DiT forwards, self-attentions on the flash route, on the plain
+    route, K1 launches, K1 tensor-core launches) so far."""
+    from jen1_tpu_torch.models import dit
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    return (dit.FORWARDS, dit.SELF_ATTN_FLASH, dit.SELF_ATTN_PLAIN, fa.LAUNCHES,
+            fa.LAUNCHES_MMA)
+
+
+def phase_sao(torch) -> int:
+    """Stable Audio Open 1.0 at the published widths through the main path
+    (sao-batch's request); returns its K1 launches."""
+    import numpy as np
+
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.config import stable_audio_open_config
+    from jen1_tpu_torch.models import dit
+    from jen1_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    jen1 = Jen1(config=stable_audio_open_config(), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in jen1.model.parameters())
+    depth = jen1.config.dit_config.depth
+    log(f"[sao] Jen1(stable_audio_open_config()) built in {time.perf_counter() - t0:.2f} s; "
+        f"DiT params {n_params}, {depth} blocks; sample rate {jen1.sample_rate}")
+    if n_params != SAO_DIT_PARAMS:
+        raise SystemExit(f"chip_smoke: the DiT has {n_params} parameters, want {SAO_DIT_PARAMS}")
+
+    def request(steps):
+        return jen1.generate(SAO_PROMPTS, seed=SAO_SEED, steps=steps, batch_size=SAO_BATCH,
+                             seconds=SAO_SAMPLES / jen1.sample_rate, seconds_start=0,
+                             seconds_total=47)
+
+    graphs = jen1.graphs
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = sync_wall(torch, lambda: request(SAO_STEPS))
+    log(f"[sao] first request (captures): wall {wall:.4f} s; graphs captured "
+        f"{graphs.captures} in {graphs.capture_seconds:.4f} s")
+    captures, replays = graphs.captures, graphs.replays
+    for name in dit.COUNTERS:
+        setattr(dit, name, 0)
+    fa.LAUNCHES = fa.LAUNCHES_MMA = 0
+    out, wall = sync_wall(torch, lambda: request(SAO_STEPS))
+    counts = dit_counts()
+    calls = depth * SAO_STEPS
+    want = (SAO_STEPS, calls, 0, calls, calls)
+    phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
+    audio_s = SAO_BATCH * SAO_SAMPLES / jen1.sample_rate
+    log(f"[sao] replayed request: wall {wall:.4f} s ({audio_s / wall:.3f} audio-s/s); "
+        f"phases (s): {phases}; graphs captured "
+        f"{graphs.captures - captures}, replays {graphs.replays - replays}; (forwards, flash "
+        f"self-attentions, plain, K1, K1 tensor-core) {counts}, want {want}; peak device "
+        f"memory {torch.cuda.max_memory_allocated()} bytes; shape {out.shape}, finite "
+        f"{bool(np.isfinite(out).all())}, rms "
+        f"{float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
+    if counts != want:
+        raise SystemExit(f"chip_smoke: the SAO request counted {counts}, want {want}")
+    if graphs.captures != captures or graphs.replays == replays:
+        raise SystemExit("chip_smoke: the SAO request captured again, or replayed nothing")
+    if out.shape != (SAO_BATCH, 2, SAO_SAMPLES) or not np.isfinite(out).all():
+        raise SystemExit(f"chip_smoke: SAO output shape {out.shape} or non-finite values")
+    if np.array_equal(out[0], out[1]):
+        raise SystemExit("chip_smoke: two SAO captions gave identical audio")
+
+    request(PROFILE_STEPS)  # captures the key's graph outside the trace
+    start = dit_counts()
+    by_name = profile_window(torch, "sao-profile", f"{PROFILE_STEPS}-step SAO request",
+                             lambda: request(PROFILE_STEPS))
+    counted = tuple(b - a for a, b in zip(start, dit_counts()))
+    want = tuple(w * PROFILE_STEPS // SAO_STEPS for w in want)
+    traced = sum(n for name, (n, _) in by_name.items() if "flash_fwd_mma_kernel" in name)
+    log_kernel_time(by_name, "sao-profile", ("flash_fwd_mma_kernel",), "K1",
+                    "the profiled request")
+    log(f"[sao-profile] K1 launches: traced {traced}, counted {counted}, want {want}")
+    if counted != want or traced != counted[4]:
+        raise SystemExit(f"chip_smoke: the profiled SAO request traced {traced} K1 launches, "
+                         f"counted {counted}, want {want}")
+    return counts[3] + counted[3]
+
+
 def nccl_world1():
     """An in-process NCCL process group of one rank on cuda:0 (a HashStore,
     no port) and its (1, 1, 1) mesh; destroy with
@@ -4581,6 +4696,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_generation += phase_stft(torch)
     phase_eval(torch, main_outs, snake_outs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_generation += phase_sao(torch)
     for row, launches in zip(rows, (k1_generation + k1_train, k2, k3, k4, k5)):
         row["launches"] = launches
     print(json.dumps({"kernels": rows}), flush=True)

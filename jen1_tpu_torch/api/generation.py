@@ -63,6 +63,16 @@ LoRA. `lora_path` names a checkpoint directory of a LoRA run
 once at load, before the bf16 cast of `weights_dtype`, with the scale
 `lora_scale` or `lora_config.alpha / rank`.
 
+Stable Audio Open. A config with `denoiser` "dit" and `codec_type`
+"oobleck" (`config.stable_audio_open_config()`) builds the DiT of
+models/dit.py, T5-base and two number conditioners (seconds_start,
+seconds_total: cross-attention tokens and, concatenated, the global
+condition) and the Oobleck VAE decoder of codec/oobleck.py at its
+`oobleck_config.sample_rate`; `generate(..., seconds_start=, seconds_total=)` feeds the
+number conditioners, and the rest of the path is JEN-1's: the same phases,
+VDM sampler, guidance and graphs. Its VAE encoder is not ported, so it runs
+text_guided generation without init_audio only.
+
 Composer. `generate_tracks` generates the n_tracks channel groups of a
 multi-track config (`config.composer_config`), given any subset of tracks
 as waveforms. The model runs on `device` ("cuda" by default; "cpu" only
@@ -108,6 +118,7 @@ from jen1_tpu_torch.data.audio_io import convert_audio, write_wav
 from jen1_tpu_torch.data.flac_write import write_flac
 from jen1_tpu_torch.diffusion.gdm import DDIMSampler, create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import VDMSampler, create_variational_diffusion
+from jen1_tpu_torch.models.dit import DiffusionTransformer
 from jen1_tpu_torch.models.unet import unet_from_model_config
 from jen1_tpu_torch.ops.conv import fp32_precision
 from jen1_tpu_torch.ops.embeddings import rand_bool
@@ -122,6 +133,12 @@ TASKS = ("text_guided", "music_inpaint", "music_cont")
 # the samplers a Jen1 keeps (module docstring, "Compiled sampling")
 SAMPLE_CACHE_ENTRIES = 4
 REFERENCE_SUFFIXES = (".pth", ".pt", ".bin")
+# the conditioning ids by denoiser: (cross-attention, global, input concat)
+COND_IDS = {
+    "unet": (("prompt",), (), ("masked_input", "mask")),
+    "dit": (("prompt", "seconds_start", "seconds_total"), ("seconds_start", "seconds_total"),
+            ()),
+}
 # the FiLM mapping head runs in fp32 before the compute-dtype cast
 BF16_KEEP = ("to_time", "to_features", "to_mapping")
 ENCODE_MODES = ("chunked", "whole")
@@ -201,10 +218,10 @@ class Jen1:
     def __init__(
         self,
         ckpt_path: Optional[str] = None,
-        sample_rate: int = 48_000,
-        cross_attn_cond_ids=("prompt",),
-        global_cond_ids=(),
-        input_concat_ids=("masked_input", "mask"),
+        sample_rate: Optional[int] = None,
+        cross_attn_cond_ids=None,
+        global_cond_ids=None,
+        input_concat_ids=None,
         config: Optional[Config] = None,
         codec=None,
         conditioner=None,
@@ -224,7 +241,11 @@ class Jen1:
         if lora_path is not None and not has_checkpoints(lora_path):
             raise unreadable_checkpoint(lora_path)
         self.config = config or Config()
-        if ckpt_path is None and self.config.model_config.context_features is not None:
+        self.is_dit = self.config.denoiser == "dit"
+        if is_reference and self.is_dit:
+            raise ValueError("a reference .pth checkpoint holds a JEN-1 UNet, not a DiT")
+        if (ckpt_path is None and not self.is_dit
+                and self.config.model_config.context_features is not None):
             # jen1_tpu's Jen1 initialises random weights without global
             # features and fails (jen1_tpu/api/generation.py:220-240 ->
             # models/unet.py:135); the port adds no feature it lacks
@@ -232,10 +253,14 @@ class Jen1:
                 "model_config.context_features (global conditioning) needs ckpt_path: "
                 "jen1_tpu's Jen1 cannot initialise such a model at random")
         self.device = resolve_device(device)
-        self.sample_rate = sample_rate
-        self.cross_attn_cond_ids = tuple(cross_attn_cond_ids)
-        self.global_cond_ids = tuple(global_cond_ids)
-        self.input_concat_ids = tuple(input_concat_ids)
+        oobleck = self.config.codec_type == "oobleck"
+        self.sample_rate = sample_rate or (
+            self.config.oobleck_config.sample_rate if oobleck else 48_000)
+        ids = COND_IDS[self.config.denoiser]
+        self.cross_attn_cond_ids = tuple(ids[0] if cross_attn_cond_ids is None
+                                         else cross_attn_cond_ids)
+        self.global_cond_ids = tuple(ids[1] if global_cond_ids is None else global_cond_ids)
+        self.input_concat_ids = tuple(ids[2] if input_concat_ids is None else input_concat_ids)
         seed = self.config.seed
 
         # the reference ties the 1x1 conv before and after each Transformer1d
@@ -261,23 +286,20 @@ class Jen1:
             if t5c.weights_path is None and t5c.t5_model_name != "tiny-test":
                 _warn("T5 conditioner has no weights_path: the text encoder is "
                       "RANDOM-initialized and prompts will not steer generation. Set "
-                      "config.conditioner_config.t5_config.weights_path to a FLAN-T5 "
+                      "config.conditioner_config.t5_config.weights_path to a T5 "
                       "encoder state dict for real inference.")
             conditioner = create_multi_conditioner(
                 self.config.conditioner_config, device=self.device, generator=gen(1)
             )
         self.conditioner = conditioner
         if codec is None:
-            from jen1_tpu_torch.codec.model import encodec_48khz_config, make_codec
-
-            codec = make_codec(self.config.codec_weights_path, encodec_48khz_config(),
-                               device=self.device, generator=gen(2))
+            codec = self._make_codec(gen(2))
         self.codec = codec
-        self.compute_dtype = (
-            torch.bfloat16 if self.config.model_config.dtype == "bfloat16" else torch.float32
-        )
+        dtype = (self.config.dit_config if self.is_dit else self.config.model_config).dtype
+        self.compute_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         with torch.device(self.device):
-            self.model = unet_from_model_config(self.config.model_config).eval()
+            self.model = (DiffusionTransformer(self.config.dit_config) if self.is_dit else
+                          unet_from_model_config(self.config.model_config)).eval()
         init_module(self.model, gen(0))
         if ckpt_path is not None:
             self._load_weights(ckpt_path, is_reference, use_ema_params)
@@ -304,6 +326,25 @@ class Jen1:
         self.last_decode_events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
         # a DeviceMesh (parallel/mesh.py) whose dp and sp axes shard generate()
         self.mesh = None
+
+    def _make_codec(self, generator: torch.Generator):
+        """The codec `codec_type` names: EnCodec 48 kHz (from
+        `codec_weights_path` or random) or the Oobleck decoder (random)."""
+        if self.config.codec_type == "oobleck":
+            from jen1_tpu_torch.codec.oobleck import OobleckCodec
+
+            if self.config.codec_weights_path is not None:
+                raise NotImplementedError("codec_weights_path: the Oobleck decoder loads no "
+                                          "checkpoint yet")
+            return OobleckCodec(self.config.oobleck_config, device=self.device,
+                                generator=generator)
+        if self.config.codec_type != "encodec":
+            raise ValueError(f"codec_type must be 'encodec' or 'oobleck', "
+                             f"got {self.config.codec_type!r}")
+        from jen1_tpu_torch.codec.model import encodec_48khz_config, make_codec
+
+        return make_codec(self.config.codec_weights_path, encodec_48khz_config(),
+                          device=self.device, generator=generator)
 
     @torch.no_grad()
     def _load_weights(self, ckpt_path: str, is_reference: bool, use_ema_params: bool) -> None:
@@ -442,6 +483,8 @@ class Jen1:
     def latent_frames(self, samples: int, encode_mode: str = "chunked") -> int:
         """Latent frames that generate()'s encoder yields for `samples`
         samples, without running it (text_guided without init_audio)."""
+        if hasattr(self.codec, "latent_frames"):  # a codec with its own grid (Oobleck)
+            return self.codec.latent_frames(samples)
         hop = self.codec.config.hop_length
         if self.config.codec_segmented_latents:
             return sum(math.ceil((end - start) / hop)
@@ -515,6 +558,8 @@ class Jen1:
         encoder_reuse: int = 1,
         output_dtype: str = "float32",
         output_transport: str = "host",
+        seconds_start: Optional[float] = None,
+        seconds_total: Optional[float] = None,
     ):
         """Waveform (B, channels, samples) float32, or int16 PCM with
         output_dtype="int16" (converted on the device); with decode=False
@@ -546,7 +591,12 @@ class Jen1:
         results. DPM-Solver++, DDPM and a request under `self.mesh` run
         eagerly. encoder_reuse=k > 1 (GDM, "scan" or "dpm++") runs the
         UNet's encoder on one step of each k-step block and its decoder alone
-        on the others (`diffusion/gdm.py::reuse_schedule`)."""
+        on the others (`diffusion/gdm.py::reuse_schedule`).
+
+        seconds_start and seconds_total feed the number conditioners of
+        those ids where the config has them (Stable Audio Open: 0 and
+        `seconds` when not given; otherwise the conditioners' fill values).
+        Stable Audio Open runs text_guided without init_audio only."""
         # the JAX package's checks (jen1_tpu/api/generation.py:403-411, 582-595)
         if output_dtype not in ("float32", "int16"):
             raise ValueError(f"output_dtype must be 'float32' or 'int16', got {output_dtype!r}")
@@ -567,6 +617,13 @@ class Jen1:
             raise ValueError(f"encode_mode must be one of {ENCODE_MODES}, got {encode_mode!r}")
         if task not in TASKS:
             raise ValueError(f"unknown task: {task}")
+        if self.is_dit and (task != "text_guided" or init_audio is not None):
+            raise NotImplementedError(
+                f"task {task!r} with init_audio needs the codec's encoder; the Oobleck VAE "
+                "encoder of this config is not ported: text_guided without init_audio only")
+        if self.is_dit:
+            seconds_start = 0 if seconds_start is None else seconds_start
+            seconds_total = seconds if seconds_total is None else seconds_total
         on_device = output_transport == "device"
         fetch = None if on_device else "fetch"  # the last phase: the copy to the host
 
@@ -623,7 +680,9 @@ class Jen1:
         latent_mask = torch.from_numpy(self.latent_mask(mask, latent_len)).to(dev)
         masked_emb = init_emb * latent_mask
 
-        cond = dict(self.conditioner([{"prompt": p} for p in prompts]))
+        numbers = {k: v for k, v in (("seconds_start", seconds_start),
+                                     ("seconds_total", seconds_total)) if v is not None}
+        cond = dict(self.conditioner([{"prompt": p, **numbers} for p in prompts]))
         mark("conditioner", "assemble")
         cond["masked_input"] = masked_emb.to(self.compute_dtype)
         cond["mask"] = latent_mask.to(self.compute_dtype)

@@ -175,7 +175,8 @@ def create_multi_conditioner(config, *, device="cuda",
     """Build every configured conditioner (a `ConditionerConfig`), in
     `conditioning_type` order, all drawing from `generator`; int and number
     keys fill with their `min_val` (jen1_tpu/conditioning/conditioners.py:
-    213-250)."""
+    213-250). "number_start" is the port's second number conditioner
+    (`number_start_config`)."""
     conditioners: Dict[str, Any] = {}
     fill_values: Dict[str, Any] = {}
     for ctype in config.conditioning_type:
@@ -190,8 +191,9 @@ def create_multi_conditioner(config, *, device="cuda",
                 device=device,
                 generator=generator,
             )
-        elif ctype in ("int", "number"):
-            c = config.int_config if ctype == "int" else config.number_config
+        elif ctype in ("int", "number", "number_start"):
+            c = {"int": config.int_config, "number": config.number_config,
+                 "number_start": config.number_start_config}[ctype]
             cls = IntConditioner if ctype == "int" else NumberConditioner
             conditioners[c.id] = cls(config.cond_dim, c.min_val, c.max_val, device=device,
                                      generator=generator)

@@ -5,7 +5,15 @@ defaults, the JSON round trip of `jen1_tpu/config.py:318-381` (a JSON written
 by the JAX `Config.to_json()` loads; keys that neither package knows are
 ignored, as there) and the `longform_config()`, `tiny_test_config()`,
 `composer_config()` and `tiny_composer_test_config()` presets. Every
-field builds what the JAX package builds from it. `weights_path` and
+field builds what the JAX package builds from it.
+
+Beyond the JAX tree the port carries a second model family, Stable Audio
+Open 1.0 (`stable_audio_open_config()`): `denoiser` "dit" builds
+`models/dit.py` from `dit_config`, `codec_type` "oobleck" builds
+`codec/oobleck.py` from `oobleck_config` (whose `sample_rate` is then the
+waveform's), and `conditioner_config.number_start_config` the second
+number conditioner (conditioning type "number_start"). Their defaults
+build JEN-1 exactly as before. `weights_path` and
 `codec_weights_path` name local torch state dicts that the T5 conditioner
 and `Jen1`'s codec load. `compile_effort`, `use_fp16`,
 `is_finetuning` and `mesh_axis_names` are carried for the round trip and
@@ -17,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -164,6 +173,10 @@ class NumberConfig:
     max_val: float = 512
 
 
+def _start_number_config() -> NumberConfig:
+    return NumberConfig(id="seconds_start")
+
+
 @dataclass
 class ConditionerConfig:
     cond_dim: int = 1024
@@ -172,6 +185,50 @@ class ConditionerConfig:
     t5_config: T5Config = field(default_factory=T5Config)
     int_config: IntConfig = field(default_factory=IntConfig)
     number_config: NumberConfig = field(default_factory=NumberConfig)
+    # conditioning type "number_start": a second number conditioner
+    # (Stable Audio Open's seconds_start); the port's own field
+    number_start_config: NumberConfig = field(default_factory=_start_number_config)
+
+
+@dataclass
+class DiTConfig:
+    """Stable Audio Open's DiT (stable-audio-tools `models/dit.py`,
+    `DiffusionTransformer` with the "continuous_transformer" and
+    `global_cond_type` "prepend"): io_channels latent channels in and out,
+    `depth` pre-norm blocks of `num_heads` heads of embed_dim / num_heads,
+    cross-attention to cond_token_dim-wide tokens (kv heads of the same
+    head width over that width, each shared by num_heads / kv_heads query
+    heads), a GLU feed-forward, the time and global embeddings summed into
+    one token prepended to the sequence. Self-attention runs the flash
+    kernel (K1) wherever `flash_attention_supported` holds (128 tokens or
+    more)."""
+
+    io_channels: int = 64
+    embed_dim: int = 1536
+    depth: int = 24
+    num_heads: int = 24
+    cond_token_dim: int = 768
+    global_cond_dim: int = 1536
+    dtype: str = "bfloat16"  # compute dtype; params are always fp32
+
+
+@dataclass
+class OobleckConfig:
+    """Stable Audio Open's VAE decoder (stable-audio-tools
+    `models/autoencoders.py::OobleckDecoder`): latent `dimension` to
+    `channels` audio channels at `sample_rate`, upsampled by the product
+    of `strides`."""
+
+    sample_rate: int = 44_100
+    channels: int = 2
+    dimension: int = 64
+    base_channels: int = 128
+    c_mults: Tuple[int, ...] = (1, 2, 4, 8, 16)
+    strides: Tuple[int, ...] = (2, 4, 4, 8, 8)
+
+    @property
+    def hop_length(self) -> int:
+        return math.prod(self.strides)
 
 
 @dataclass
@@ -232,6 +289,11 @@ class Config:
     conditioner_config: ConditionerConfig = field(default_factory=ConditionerConfig)
     parallel_config: ParallelConfig = field(default_factory=ParallelConfig)
     lora_config: LoraConfig = field(default_factory=LoraConfig)
+    # the port's own fields (module docstring): the model family
+    denoiser: str = "unet"  # 'unet' (model_config) | 'dit' (dit_config)
+    codec_type: str = "encodec"  # 'encodec' (48 kHz) | 'oobleck' (oobleck_config)
+    dit_config: DiTConfig = field(default_factory=DiTConfig)
+    oobleck_config: OobleckConfig = field(default_factory=OobleckConfig)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -368,4 +430,51 @@ def tiny_composer_test_config(n_tracks: int = 2) -> Config:
     )
     cfg.tasks = ("text_guided", "music_inpaint", "music_cont", "track_gen")
     cfg.dataset_config = dataclasses.replace(cfg.dataset_config, batch_size=4)
+    return cfg
+
+
+def stable_audio_open_config() -> Config:
+    """Stable Audio Open 1.0 at its published widths
+    (huggingface.co/stabilityai/stable-audio-open-1.0, model_config.json):
+    the 1.06 B-parameter DiT, T5-base (ReLU) text tokens of 768 with no
+    projection, number conditioners for seconds_start and seconds_total
+    (0-512 s) as cross-attention tokens and, concatenated, the global
+    condition, the Oobleck VAE decoder at 44.1 kHz stereo; the v objective
+    on the port's VDM sampler (the trigonometric schedule) with batch CFG
+    at scale 7 and no rescale; bf16 compute over fp32 weights."""
+    cfg = Config()
+    cfg.denoiser = "dit"
+    cfg.codec_type = "oobleck"
+    cfg.diffusion_type = "vdm"
+    vdm = cfg.diffusion_config.variational_diffusion
+    vdm.embedding_scale = 7.0
+    vdm.batch_cfg = True
+    vdm.scale_cfg = False
+    vdm.cfg_dropout_proba = 0.1
+    cc = cfg.conditioner_config
+    cc.cond_dim = 768
+    cc.conditioning_type = ("t5", "number_start", "number")
+    cc.t5_config = T5Config(id="prompt", t5_model_name="t5-base", max_length=128,
+                            project_out=False)
+    cc.number_start_config = NumberConfig(id="seconds_start", min_val=0, max_val=512)
+    cc.number_config = NumberConfig(id="seconds_total", min_val=0, max_val=512)
+    cfg.dataset_config = dataclasses.replace(cfg.dataset_config, sr=44_100,
+                                             sample_duration=2_097_152 / 44_100)
+    return cfg
+
+
+def tiny_stable_audio_test_config() -> Config:
+    """Stable Audio Open's structure at test widths: 2 blocks of 4 heads of
+    64 (the published head width, so rotary covers half of each head), a
+    128-wide context (2 kv heads, each shared by 2 query heads), the tiny
+    T5 and a 3-block Oobleck decoder of hop 8, fp32 compute."""
+    cfg = stable_audio_open_config()
+    cfg.dit_config = DiTConfig(io_channels=8, embed_dim=256, depth=2, num_heads=4,
+                               cond_token_dim=128, global_cond_dim=256, dtype="float32")
+    cfg.oobleck_config = OobleckConfig(dimension=8, base_channels=8, c_mults=(1, 2, 4),
+                                       strides=(2, 2, 2))
+    cc = cfg.conditioner_config
+    cc.cond_dim = 128
+    cc.t5_config = T5Config(id="prompt", t5_model_name="tiny-test", max_length=8,
+                            project_out=False)
     return cfg

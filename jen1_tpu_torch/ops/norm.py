@@ -227,17 +227,20 @@ class GroupNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis with fp32 statistics."""
+    """LayerNorm over the last axis with fp32 statistics; `use_bias=False`
+    keeps the shift at zero (no parameter), as Stable Audio Open's blocks
+    do."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, use_bias: bool = True):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.empty(channels))
-        self.bias = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels)) if use_bias else None
 
     def init_parameters(self, generator):
         nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)

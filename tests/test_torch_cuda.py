@@ -1003,3 +1003,34 @@ def test_failed_capture_leaves_the_card_usable(cuda_device, monkeypatch):
         eager = jen1.generate("a beautiful song", **kw)
     assert jen1.graphs.captures == 1
     assert float(abs(graphed - eager).max()) <= GRAPH_REL_BAR * float(abs(eager).max())
+
+
+def test_graphed_dit_matches_eager_and_takes_k1_at_head_dim_64(cuda_device):
+    """Stable Audio Open's structure at test widths (heads of the published
+    64) in bf16 with 1024 latent frames, so the self-attention's 1025
+    tokens, as published, reach K1: a graphed request equals the same
+    request under disable_graphs(), every self-attention took the flash
+    route, and every K1 launch the tensor-core route at head dim 64,
+    counted at every replay."""
+    from jen1_tpu_torch.api.generation import Jen1
+    from jen1_tpu_torch.config import tiny_stable_audio_test_config
+    from jen1_tpu_torch.models import dit
+    from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
+
+    cfg = tiny_stable_audio_test_config()
+    cfg.dit_config.dtype = "bfloat16"
+    jen1 = Jen1(config=cfg, device="cuda")
+    assert jen1.model.layers[0].self_attn.head_dim == 64
+    # 1024 frames and half a hop more, so that int(seconds * rate) // hop is 1024
+    kw = dict(seed=3, steps=3, batch_size=2, seconds=(1024 * 8 + 4) / 44_100, decode=False)
+    jen1.generate(["rain on a tin roof", "a choir"], **kw)  # captures
+    counts = (dit.SELF_ATTN_FLASH, dit.SELF_ATTN_PLAIN, fa.LAUNCHES, fa.LAUNCHES_MMA)
+    graphed = jen1.generate(["rain on a tin roof", "a choir"], **kw)
+    delta = [b - a for a, b in zip(counts, (dit.SELF_ATTN_FLASH, dit.SELF_ATTN_PLAIN,
+                                            fa.LAUNCHES, fa.LAUNCHES_MMA))]
+    calls = cfg.dit_config.depth * kw["steps"]
+    assert delta == [calls, 0, calls, calls]
+    with disable_graphs():
+        eager = jen1.generate(["rain on a tin roof", "a choir"], **kw)
+    assert jen1.graphs.captures == 1
+    assert float(abs(graphed - eager).max()) <= GRAPH_REL_BAR * float(abs(eager).max())
