@@ -230,7 +230,11 @@ card generate() runs the VDM sampler and DDIM as captured CUDA graphs
 (jen1_tpu_torch/utils/cuda_graphs.py) unless disable_graphs() is active, so
 every request of main, tasks, long, bf16-weights, reuse (DDIM), serve,
 graphs, flagship and snake is graphed; the kernels' launch counts add the
-captured launches at every replay. The line before the last is the
+captured launches at every replay. So do the weight staging's counters
+(jen1_tpu_torch/ops/staging.py), which flagship, serve, graphs and sao hold
+per request (every weight a forward reads from its staged copy, none cast,
+none restaged once the weights are staged) and train per step (none read
+staged); flagship logs the staging walk's host time. The line before the last is the
 `{"kernels": [...]}` record; the last line is `{"ok": true, "device":
 {...}}`. Imports nothing of JAX or `jen1_tpu`.
 """
@@ -2006,18 +2010,25 @@ def phase_flagship(torch) -> tuple:
     kw = dict(steps=FLAGSHIP_STEPS, seconds=FLAGSHIP_SECONDS, use_gdm=True)
     expected = read * FLAGSHIP_STEPS
     # K5 and the plain route per request: every GroupNorm of each step's one
-    # forward runs K5
+    # forward runs K5; every weight the forward reads but the int8 kernels
+    # from its staged copy, none cast, none restaged after the warm-up
     want_gn = (gn * FLAGSHIP_STEPS, 0)
+    want_staging = staging_want(jen1.model, FLAGSHIP_STEPS)
     samples = FLAGSHIP_SECONDS * jen1.sample_rate
+    zero_staging()
     t0 = time.perf_counter()
     out = jen1.generate("warm-up", seed=1, **kw)
-    log(f"[flagship] warm-up request {time.perf_counter() - t0:.3f} s, shape {out.shape}")
+    log(f"[flagship] warm-up request {time.perf_counter() - t0:.3f} s, shape {out.shape}; "
+        f"(staged weights, casts, restaged) {staging_counts()}; staged copies "
+        f"{staged_copy_bytes(jen1.model)} bytes")
+    staging_walk_times(jen1)
 
     torch.cuda.reset_peak_memory_stats()
     im.LAUNCHES = fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
     launches, gn_counts, outs = [], [], []
     for prompt, seed in SLICE_PROMPTS:
         norm.LAUNCHES = norm.PLAIN_CUDA = 0
+        zero_staging()
         before = im.LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2025,18 +2036,19 @@ def phase_flagship(torch) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches.append(im.LAUNCHES - before)
-        gn_counts.append((norm.LAUNCHES, norm.PLAIN_CUDA))
+        gn_counts.append((norm.LAUNCHES, norm.PLAIN_CUDA) + staging_counts())
         outs.append(out)
         phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
         log(f"[flagship] int8 request seed={seed}: wall {wall:.4f} s; phases (s): {phases}; "
-            f"K4 launches {launches[-1]}; K5 launches, plain GroupNorms {gn_counts[-1]} "
-            f"(want {want_gn}: {gn} a forward); shape {out.shape}; "
+            f"K4 launches {launches[-1]}; K5 launches, plain GroupNorms, staged weights, "
+            f"casts, restaged {gn_counts[-1]} (want {want_gn + want_staging}: {gn} K5 and "
+            f"{want_staging[0] // FLAGSHIP_STEPS} staged a forward); shape {out.shape}; "
             f"finite {bool(np.isfinite(out).all())}; "
             f"rms {float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
     total, flash = im.LAUNCHES, (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
-    if gn_counts != [want_gn] * len(SLICE_PROMPTS):
-        raise SystemExit(f"chip_smoke: K5 launches and plain GroupNorms per request "
-                         f"{gn_counts}, want {want_gn}")
+    if gn_counts != [want_gn + want_staging] * len(SLICE_PROMPTS):
+        raise SystemExit(f"chip_smoke: K5 launches, plain GroupNorms and staging counts per "
+                         f"request {gn_counts}, want {want_gn + want_staging}")
     log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated()} bytes")
     for out in outs:
         if out.shape != (1, 2, samples) or not np.isfinite(out).all():
@@ -2068,11 +2080,41 @@ def phase_flagship(torch) -> tuple:
     graphed = graph_case(
         torch, "graphs-flagship", jen1,
         lambda: jen1.generate(prompt, seed=seed, batch_size=1, **kw),
-        (0, expected) + want_gn,
+        (0, expected) + want_gn + want_staging,
         lambda: jen1.generate(prompt, seed=seed, steps=PROFILE_STEPS,
                               seconds=FLAGSHIP_SECONDS, use_gdm=True),
-        (0, read * PROFILE_STEPS, gn * PROFILE_STEPS, 0))
-    return total + graphed[1], sum(n for n, _ in gn_counts) + graphed[2]
+        (0, read * PROFILE_STEPS, gn * PROFILE_STEPS, 0)
+        + staging_want(jen1.model, PROFILE_STEPS))
+    return total + graphed[1], sum(c[0] for c in gn_counts) + graphed[2]
+
+
+def staged_copy_bytes(model) -> int:
+    """Device bytes of `model`'s staged copies (ops/staging.py)."""
+    from jen1_tpu_torch.ops import staging
+
+    return sum(t.numel() * t.element_size() for m in model.modules()
+               for _, t in staging.staged_copies(m))
+
+
+def staging_walk_times(jen1) -> None:
+    """Host time of a request's staging walk with nothing to refill, and of
+    the graphs' weights key after it (median of 50 each)."""
+    from jen1_tpu_torch.api.generation import weights_key
+    from jen1_tpu_torch.ops import staging
+
+    def median_ms(fn):
+        walls = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls) * 1e3
+
+    before = staging_counts()
+    walk = median_ms(lambda: staging.stage(jen1.model, jen1.compute_dtype))
+    key = median_ms(lambda: weights_key(jen1.model))
+    log(f"[flagship] staging walk with nothing to refill {walk:.4f} ms (host, median of 50; "
+        f"restaged {staging_counts()[2] - before[2]}); weights_key {key:.4f} ms")
 
 
 def profile_window(torch, tag: str, what: str, fn, warm: bool = False) -> dict:
@@ -2142,7 +2184,9 @@ def phase_train(torch) -> tuple:
     the timed steps, of the checkpoint's two steps and of the remat
     comparison's two steps. Every timed step runs its GroupNorms on the
     plain route (the step needs their gradients; K5 has none): K5 launches
-    0, plain GroupNorms as many as GroupNorm modules were called."""
+    0, plain GroupNorms as many as GroupNorm modules were called; and it
+    casts its weights at each call (autograd needs them): no weight read
+    from a staged copy."""
     import numpy as np
 
     from jen1_tpu_torch.config import longform_config
@@ -2205,7 +2249,7 @@ def phase_train(torch) -> tuple:
     calls, unhook = count_group_norm_calls(trainer.model)
 
     def gn_counts():
-        return norm.LAUNCHES, norm.PLAIN_CUDA, calls["calls"]
+        return (norm.LAUNCHES, norm.PLAIN_CUDA, calls["calls"]) + staging_counts()
 
     walls, per_step, gn_steps = [], [], []
     for i in range(1, TRAIN_STEPS + 1):
@@ -2222,11 +2266,12 @@ def phase_train(torch) -> tuple:
         f"{TRAIN_BATCH * TRAIN_SECONDS / med:.3f}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; K1/K2/K3 launches per step {per_step}; "
         f"K1/K2/K3 on the tensor-core route {mma} of {total}; (K5 launches, plain "
-        f"GroupNorms, GroupNorm calls) per step {gn_steps}")
-    if any(k5 != 0 or plain != called or called < group_norms(trainer.model)
-           for k5, plain, called in gn_steps):
-        raise SystemExit(f"chip_smoke: (K5 launches, plain GroupNorms, GroupNorm calls) per "
-                         f"train step {gn_steps}: want no K5, every call on the plain route")
+        f"GroupNorms, GroupNorm calls, staged weights, casts, restaged) per step {gn_steps}")
+    if any(k5 != 0 or plain != called or called < group_norms(trainer.model) or staged != 0
+           for k5, plain, called, staged, _, _ in gn_steps):
+        raise SystemExit(f"chip_smoke: (K5 launches, plain GroupNorms, GroupNorm calls, staged "
+                         f"weights, casts, restaged) per train step {gn_steps}: want no K5, "
+                         f"every call on the plain route, no weight read staged")
     if any(s != (TRAIN_LAUNCHES,) * 3 for s in per_step):
         raise SystemExit(f"chip_smoke: K1/K2/K3 launches per step {per_step}, "
                          f"want {TRAIN_LAUNCHES} each")
@@ -2681,7 +2726,8 @@ def phase_serve(torch, jen1) -> tuple:
     stats. K1 is held to 2 launches per forward of the CFG-doubled batch, all
     on the tensor-core route, for the concurrent batches, each seeded request
     and the HTTP request, and every GroupNorm of those forwards to K5 (none
-    on the plain route). Then the busy share of a PROFILE_STEPS B=4 request
+    on the plain route), and every weight read from its staged copy (none
+    cast, none restaged). Then the busy share of a PROFILE_STEPS B=4 request
     under torch.profiler. Returns the counted K1 and K5 launches."""
     import io
     import threading
@@ -2718,6 +2764,7 @@ def phase_serve(torch, jen1) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
         norm.LAUNCHES = norm.PLAIN_CUDA = 0
+        zero_staging()
         before = dict(svc.stats)
         batches_before = len(walls)
         results, latencies = [None] * SERVE_REQUESTS, [0.0] * SERVE_REQUESTS
@@ -2737,7 +2784,7 @@ def phase_serve(torch, jen1) -> tuple:
         span = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV)
-        k5 = (norm.LAUNCHES, norm.PLAIN_CUDA)
+        k5 = (norm.LAUNCHES, norm.PLAIN_CUDA) + staging_counts()
         batch_walls = walls[batches_before:]
         padded = svc.stats["padded_lanes"] - before["padded_lanes"]
         n_batches = svc.stats["batches"] - before["batches"]
@@ -2746,11 +2793,12 @@ def phase_serve(torch, jen1) -> tuple:
             f"wall s) {[(n, round(w, 4)) for n, w in batch_walls]}; {padded} padded lanes; "
             f"span {span:.4f} s, audio-s per wall-s {SERVE_REQUESTS * SLICE_SECONDS / span:.4f}; "
             f"peak device memory {peak} bytes; K1 launches (all, tensor-core, backward) {k1}; "
-            f"K5 launches, plain GroupNorms {k5}")
+            f"K5 launches, plain GroupNorms, staged weights, casts, restaged {k5}")
         want_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
         want_padded = want_batches * SERVE_BATCH - SERVE_REQUESTS
         want_k1 = want_batches * 2 * SLICE_STEPS
-        want_k5 = (want_batches * gn * SLICE_STEPS, 0)
+        want_k5 = (want_batches * gn * SLICE_STEPS, 0) + staging_want(
+            jen1.model, want_batches * SLICE_STEPS)
         shapes_ok = all(r is not None and r.shape == (2, samples) and np.isfinite(r).all()
                         for r in results)
         if not shapes_ok or n_batches != want_batches or padded != want_padded \
@@ -2764,14 +2812,16 @@ def phase_serve(torch, jen1) -> tuple:
         def one_batch_k1(what: str) -> int:
             # every single-batch request runs SLICE_STEPS full forwards of
             # the CFG-doubled batch, all on the tensor-core route, every
-            # GroupNorm on K5
+            # GroupNorm on K5, every weight from its staged copy
             nonlocal launched_k5
             k1 = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ + fa.LAUNCHES_DKV,
-                  norm.LAUNCHES, norm.PLAIN_CUDA)
-            want = (2 * SLICE_STEPS, 2 * SLICE_STEPS, 0, gn * SLICE_STEPS, 0)
+                  norm.LAUNCHES, norm.PLAIN_CUDA) + staging_counts()
+            want = ((2 * SLICE_STEPS, 2 * SLICE_STEPS, 0, gn * SLICE_STEPS, 0)
+                    + staging_want(jen1.model, SLICE_STEPS))
             if k1 != want:
                 raise SystemExit(f"chip_smoke: {what} launched K1 (all, tensor-core, "
-                                 f"backward), K5 and plain GroupNorms {k1}, want {want}")
+                                 f"backward), K5, plain GroupNorms and staged weights, "
+                                 f"casts, restaged {k1}, want {want}")
             launched_k5 += k1[3]
             return k1[0]
 
@@ -2779,12 +2829,14 @@ def phase_serve(torch, jen1) -> tuple:
         for _ in range(2):
             fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
             norm.LAUNCHES = norm.PLAIN_CUDA = 0
+            zero_staging()
             t = time.perf_counter()
             seeded.append(svc.submit(SLICE_PROMPTS[1][0], seed=SERVE_SEED, timeout=900))
             log(f"[serve] seeded request (seed {SERVE_SEED}, lane 0 of its own batch): "
                 f"latency {time.perf_counter() - t:.4f} s; K1 launches {fa.LAUNCHES}, "
                 f"tensor-core {fa.LAUNCHES_MMA}; K5 launches {norm.LAUNCHES}, plain "
-                f"GroupNorms {norm.PLAIN_CUDA}")
+                f"GroupNorms {norm.PLAIN_CUDA}; (staged weights, casts, restaged) "
+                f"{staging_counts()}")
             launched += one_batch_k1("the seeded request")
         seed_diff = float(np.abs(seeded[0] - seeded[1]).max())
         log(f"[serve] the seeded request twice: max|diff| {seed_diff:.3e} (0 when the same "
@@ -2792,6 +2844,7 @@ def phase_serve(torch, jen1) -> tuple:
 
         fa.LAUNCHES = fa.LAUNCHES_MMA = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
         norm.LAUNCHES = norm.PLAIN_CUDA = 0
+        zero_staging()
         t = time.perf_counter()
         code, head, body = http_post(f"{url}/generate", {"prompt": SLICE_PROMPTS[0][0]},
                                      timeout=900)
@@ -2838,16 +2891,18 @@ GRAPH_REL_BAR = 1e-5
 GRAPH_LOAD_STEPS = 50
 
 
-COUNTED = "(K1, K4, K5, plain GroupNorm)"
+COUNTED = "(K1, K4, K5, plain GroupNorm, staged weights, casts, restaged)"
 
 
 def counters():
-    """(K1, K4, K5) launches and GroupNorms on the card's plain route so far."""
+    """(K1, K4, K5) launches, GroupNorms on the card's plain route and the
+    staging's counters (weights read from staged copies, casts at the
+    call, copies refilled) so far."""
     from jen1_tpu_torch.ops import flash_attention as fa
     from jen1_tpu_torch.ops import int8_matmul as im
     from jen1_tpu_torch.ops import norm
 
-    return fa.LAUNCHES, im.LAUNCHES, norm.LAUNCHES, norm.PLAIN_CUDA
+    return (fa.LAUNCHES, im.LAUNCHES, norm.LAUNCHES, norm.PLAIN_CUDA) + staging_counts()
 
 
 def zero_counters() -> None:
@@ -2856,6 +2911,41 @@ def zero_counters() -> None:
     from jen1_tpu_torch.ops import norm
 
     fa.LAUNCHES = im.LAUNCHES = norm.LAUNCHES = norm.PLAIN_CUDA = 0
+    zero_staging()
+
+
+def staging_counts() -> tuple:
+    """ops/staging.py's (STAGED, CAST, RESTAGED) so far."""
+    from jen1_tpu_torch.ops import staging
+
+    return tuple(getattr(staging, name) for name in staging.COUNTERS)
+
+
+def zero_staging() -> None:
+    from jen1_tpu_torch.ops import staging
+
+    for name in staging.COUNTERS:
+        setattr(staging, name, 0)
+
+
+def staged_reads(model, decoder_only: bool = False) -> int:
+    """Weights one denoiser forward of `model` reads through
+    ops/staging.py::compute_weights (each such module runs once a forward;
+    a stride-1 conv with an int8 kernel reads none), without the down
+    stack's in a decoder-only forward (encoder reuse): the STAGED count of
+    a forward on staged weights, with CAST 0."""
+    return sum(m._parameters.get(leaf) is not None
+               for name, m in model.named_modules() if hasattr(m, "staged_reads")
+               and not (decoder_only
+                        and any(part.startswith("downsample") for part in name.split(".")))
+               for leaf, _ in m.staged_reads)
+
+
+def staging_want(model, forwards: int, decoder_forwards: int = 0) -> tuple:
+    """(STAGED, CAST, RESTAGED) of a request of so many whole and
+    decoder-only forwards on staged, unchanged weights."""
+    return (staged_reads(model) * forwards
+            + staged_reads(model, decoder_only=True) * decoder_forwards, 0, 0)
 
 
 def group_norms(model, decoder_only: bool = False) -> int:
@@ -2901,7 +2991,8 @@ def graph_case(torch, tag: str, jen1, request, want: tuple, profile_request,
     allocated (static buffers) and the graphs' pool holds are logged. Then
     `pairs` interleaved eager / graphed pairs: walls, peak memory, the
     `counters()` (K1, K4, K5 launches, GroupNorms on the card's plain
-    route), which must equal
+    route, the staging's counters: every weight read from its staged copy,
+    no cast, nothing restaged), which must equal
     `want` in both modes, and every graphed audio and latent, the first
     request's (whose first step is the eager warm-up) included, against the
     first eager one. Then a PROFILE_STEPS request each way under
@@ -3033,13 +3124,14 @@ def phase_graphs(torch, jen1) -> tuple:
     gn, gn_decoder = group_norms(jen1.model), group_norms(jen1.model, decoder_only=True)
 
     def whole(steps):
-        # (K1, K4, K5, plain GroupNorm): one whole forward a step
-        return 2 * steps, 0, gn * steps, 0
+        # (K1, K4, K5, plain GroupNorm) + staging: one whole forward a step
+        return (2 * steps, 0, gn * steps, 0) + staging_want(jen1.model, steps)
 
     def reuse(steps):
         marks = reuse_schedule(steps, 2, True)
         return (reuse_k1(steps, 2, final_full=True), 0,
-                gn * sum(marks) + gn_decoder * (len(marks) - sum(marks)), 0)
+                gn * sum(marks) + gn_decoder * (len(marks) - sum(marks)), 0
+                ) + staging_want(jen1.model, sum(marks), len(marks) - sum(marks))
 
     k1 = k5 = 0
     # (tag, generate() arguments, counts per request of so many steps,
@@ -4281,15 +4373,19 @@ def phase_sao(torch) -> int:
 
     graphs = jen1.graphs
     torch.cuda.reset_peak_memory_stats()
+    zero_staging()
     _, wall = sync_wall(torch, lambda: request(SAO_STEPS))
     log(f"[sao] first request (captures): wall {wall:.4f} s; graphs captured "
-        f"{graphs.captures} in {graphs.capture_seconds:.4f} s")
+        f"{graphs.captures} in {graphs.capture_seconds:.4f} s; (staged weights, casts, "
+        f"restaged) {staging_counts()}; staged copies {staged_copy_bytes(jen1.model)} bytes")
     captures, replays = graphs.captures, graphs.replays
     for name in dit.COUNTERS:
         setattr(dit, name, 0)
     fa.LAUNCHES = fa.LAUNCHES_MMA = 0
+    zero_staging()
     out, wall = sync_wall(torch, lambda: request(SAO_STEPS))
-    counts = dit_counts()
+    counts, staged = dit_counts(), staging_counts()
+    want_staged = staging_want(jen1.model, SAO_STEPS)
     calls = depth * SAO_STEPS
     want = (SAO_STEPS, calls, 0, calls, calls)
     phases = " ".join(f"{k}={v:.4f}" for k, v in jen1.last_timings.items())
@@ -4297,12 +4393,14 @@ def phase_sao(torch) -> int:
     log(f"[sao] replayed request: wall {wall:.4f} s ({audio_s / wall:.3f} audio-s/s); "
         f"phases (s): {phases}; graphs captured "
         f"{graphs.captures - captures}, replays {graphs.replays - replays}; (forwards, flash "
-        f"self-attentions, plain, K1, K1 tensor-core) {counts}, want {want}; peak device "
+        f"self-attentions, plain, K1, K1 tensor-core) {counts}, want {want}; (staged "
+        f"weights, casts, restaged) {staged}, want {want_staged}; peak device "
         f"memory {torch.cuda.max_memory_allocated()} bytes; shape {out.shape}, finite "
         f"{bool(np.isfinite(out).all())}, rms "
         f"{float(np.sqrt((out.astype(np.float64) ** 2).mean())):.4e}")
-    if counts != want:
-        raise SystemExit(f"chip_smoke: the SAO request counted {counts}, want {want}")
+    if counts != want or staged != want_staged:
+        raise SystemExit(f"chip_smoke: the SAO request counted {counts} and {staged}, want "
+                         f"{want} and {want_staged}")
     if graphs.captures != captures or graphs.replays == replays:
         raise SystemExit("chip_smoke: the SAO request captured again, or replayed nothing")
     if out.shape != (SAO_BATCH, 2, SAO_SAMPLES) or not np.isfinite(out).all():

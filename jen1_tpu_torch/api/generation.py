@@ -43,10 +43,15 @@ one sampler per key, as the JAX package memoizes one compiled sampler per
 (sampler_mode, steps, use_gdm, causal, shape, encoder_reuse)
 (jen1_tpu/api/generation.py:609-650); the key adds what a capture bakes in:
 the task, the conditioning's shapes and dtypes, the compute dtype and the
-UNet's weights (each parameter's, buffer's and int8 kernel's address, dtype
-and shape). A weight load in place (`copy_`) is read by the next replay; a
-rebinding (`attach_qweights`, `clear_qweights`, `cast_weights_bf16`) makes a
-new key, and the entries of the old weights are dropped. The cache keeps
+UNet's weights (each parameter's, buffer's, int8 kernel's and staged
+copy's address, dtype and shape). Each request first stages the
+denoiser's compute weights (ops/staging.py: one copy of each weight at the
+compute dtype, in the layout its op reads, which the steps read in place
+of a cast at every call), refilling in place the copies of weights
+written in place since. So a weight load in place (`copy_`) is read by the
+next replay; a rebinding (`attach_qweights`, `clear_qweights`,
+`cast_weights_bf16`) makes a new key, and the entries of the old weights
+are dropped. The cache keeps
 the SAMPLE_CACHE_ENTRIES most recently used entries, since each holds its
 static buffers on the card, and a service sees as many keys as its
 clients send (seconds, steps). An entry serves
@@ -120,6 +125,7 @@ from jen1_tpu_torch.diffusion.gdm import DDIMSampler, create_gaussian_diffusion
 from jen1_tpu_torch.diffusion.vdm import VDMSampler, create_variational_diffusion
 from jen1_tpu_torch.models.dit import DiffusionTransformer
 from jen1_tpu_torch.models.unet import unet_from_model_config
+from jen1_tpu_torch.ops import staging
 from jen1_tpu_torch.ops.conv import fp32_precision
 from jen1_tpu_torch.ops.embeddings import rand_bool
 from jen1_tpu_torch.ops.initializers import init_module
@@ -154,9 +160,9 @@ def cast_weights_bf16(model: torch.nn.Module) -> List[str]:
     (jen1_tpu/api/generation.py:46-78). Floating parameters with ndim >= 2
     become bf16, except the FiLM mapping head's (`BF16_KEEP`), which run in
     fp32; vectors (biases, norm scales, Fourier weights) stay fp32. Every
-    module casts its weight to the activation dtype at use, so under bf16
-    compute the outputs equal fp32 storage's bit for bit while the weight
-    bytes halve."""
+    module reads its weight at the activation dtype, so under bf16 compute
+    the outputs equal fp32 storage's bit for bit while the weight bytes
+    halve; a bf16 weight is its own staged copy (ops/staging.py)."""
     cast = []
     for name, p in model.named_parameters():
         if p.ndim >= 2 and p.is_floating_point() and not any(k in name for k in BF16_KEEP):
@@ -167,12 +173,13 @@ def cast_weights_bf16(model: torch.nn.Module) -> List[str]:
 
 def weights_key(model: torch.nn.Module) -> tuple:
     """What a captured graph bakes in of a model's weights: the name,
-    address, dtype and shape of every parameter, buffer and attached int8
-    kernel and scale."""
+    address, dtype and shape of every parameter, buffer, attached int8
+    kernel and scale, and staged copy (ops/staging.py)."""
     leaves = list(model.named_parameters()) + list(model.named_buffers())
     for path, module in model.named_modules():
         if reads_qweights(module) and module.kernel8 is not None:
             leaves += [(f"{path}.kernel8", module.kernel8), (f"{path}.scale", module.scale)]
+        leaves += [(f"{path}.{name}:staged", t) for name, t in staging.staged_copies(module)]
     return tuple((name, t.data_ptr(), t.dtype, tuple(t.shape)) for name, t in leaves)
 
 
@@ -422,10 +429,12 @@ class Jen1:
         capture bakes in, made by `make(graphs)` on a miss, under the
         sampler lock. A miss drops the entries of other weights, which can
         no longer be replayed, and the least recently used ones beyond
-        SAMPLE_CACHE_ENTRIES."""
-        wkey = weights_key(self.model)
-        key = (*key, conditioning_key(conditioning), self.compute_dtype, wkey)
+        SAMPLE_CACHE_ENTRIES. The denoiser's weights are staged first, so
+        that the key holds their copies' addresses."""
         with self._sample_lock:
+            staging.stage(self.model, self.compute_dtype)
+            wkey = weights_key(self.model)
+            key = (*key, conditioning_key(conditioning), self.compute_dtype, wkey)
             sampler = self._sample_cache.pop(key, None)
             if sampler is None:
                 cache = self._sample_cache

@@ -1,14 +1,17 @@
 """Omnidirectional 1-D convolutions, channels-last (B, L, C) (port of
 jen1_tpu/ops/conv.py).
 
-Weights are stored in torch layout, fp32, and cast to the activation dtype
-at use: Conv1d (out, in, K), ConvTranspose1d (in, out, K). The functions
-hand the convolution a channels-last view of (B, L, C), (B, C, 1, L) with
-NHWC strides, and a weight cast and laid out channels-last in one copy
-(`_weight_cl`), so cuDNN reads and writes (B, L, C) with no transposing
-copy before or after (a 3-D `F.conv1d` makes its input (B, C, L)-contiguous
-first); symmetric padding is the convolution's own, a causal conv pads in
-(B, L, C). A contiguous input gives a contiguous (B, L', C) output.
+Weights are stored in torch layout, fp32: Conv1d (out, in, K),
+ConvTranspose1d (in, out, K). The functions hand the convolution a
+channels-last view of (B, L, C), (B, C, 1, L) with NHWC strides, and the
+weight at the activation dtype laid out channels-last, (O, I, 1, K), so
+cuDNN reads and writes (B, L, C) with no transposing copy before or after
+(a 3-D `F.conv1d` makes its input (B, C, L)-contiguous first); symmetric
+padding is the convolution's own, a causal conv pads in (B, L, C). A
+contiguous input gives a contiguous (B, L', C) output. Given a (O, I, K)
+weight, a function casts and lays it out in one copy at each call (the
+codecs' convs); the modules here hand it that form already, their staged
+copy where it serves (ops/staging.py).
 
 A stride-1 `OmniConv1d` given an int8 kernel
 (`ops/int8_matmul.py::attach_qweights`) runs `conv1d_int8w` instead.
@@ -33,7 +36,11 @@ from torch import nn
 
 from jen1_tpu_torch.ops.initializers import torch_uniform_
 from jen1_tpu_torch.ops.int8_matmul import conv1d_int8w
+from jen1_tpu_torch.ops.staging import compute_form, compute_weights
 from jen1_tpu_torch.parallel import sp as seq
+
+# a conv module's reads (ops/staging.py): the weight channels-last, the bias
+CONV_READS = (("weight", True), ("bias", False))
 
 
 @contextlib.contextmanager
@@ -63,8 +70,8 @@ def _cast(w: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
 
 def _weight_cl(w: torch.Tensor, dtype) -> torch.Tensor:
     """A (O, I, K) weight as (O, I, 1, K) of `dtype`, channels-last (cuDNN's
-    KRSC order), in one copy."""
-    return w.unsqueeze(2).to(dtype, memory_format=torch.channels_last)
+    KRSC order), in one copy; a 4-D weight is in that form already."""
+    return w if w.dim() == 4 else compute_form(w.unsqueeze(2), dtype, True)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +93,8 @@ def conv1d(
     dilation: int = 1,
     causal: bool = False,
 ) -> torch.Tensor:
-    """x (B, L, Cin), weight (Cout, Cin, K) -> (B, L', Cout).
+    """x (B, L, Cin), weight (Cout, Cin, K) or its form (Cout, Cin, 1, K)
+    -> (B, L', Cout).
 
     Padding is (K-1)*dilation in total: all on the left when causal, else
     `pad // 2` on each side (jen1_tpu/ops/conv.py:54-56)."""
@@ -118,9 +126,10 @@ def conv_transpose1d(
     output_padding: int = 0,
 ) -> torch.Tensor:
     """torch-semantics ConvTranspose1d in channels-last: x (B, L, Cin),
-    weight (Cin, Cout, K); out_len = (L-1)*stride - 2*padding + K +
-    output_padding. Under sp (K <= 2 * stride) one frame from each
-    neighbour, and this rank's L * stride outputs."""
+    weight (Cin, Cout, K) or its form (Cin, Cout, 1, K); out_len =
+    (L-1)*stride - 2*padding + K + output_padding. Under sp (K <= 2 *
+    stride) one frame from each neighbour, and this rank's L * stride
+    outputs."""
     length = x.shape[1]
     sharded = seq.active() is not None
     if sharded:
@@ -164,6 +173,10 @@ class OmniConv1d(nn.Module):
         self.register_buffer("kernel8", None, persistent=False)
         self.register_buffer("scale", None, persistent=False)
 
+    @property
+    def staged_reads(self):
+        return () if self.stride == 1 and self.kernel8 is not None else CONV_READS
+
     def init_parameters(self, generator):
         torch_uniform_(self.weight, self.fan_in, generator)
         if self.bias is not None:
@@ -179,7 +192,7 @@ class OmniConv1d(nn.Module):
                              dilation=self.dilation, causal=causal)
             return y[:, left:left + length] if seq.active() is not None else y
         return conv1d(
-            x, self.weight, self.bias,
+            x, *compute_weights(self, x.dtype),
             stride=self.stride, dilation=self.dilation, causal=causal,
         )
 
@@ -209,6 +222,8 @@ class Upsample1d(nn.Module):
     otherwise     -> transposed conv k=2*factor, stride=factor
     """
 
+    staged_reads = CONV_READS
+
     def __init__(
         self, in_channels: int, out_channels: int, factor: int, use_nearest: bool = False
     ):
@@ -231,11 +246,12 @@ class Upsample1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.factor
+        weight, bias = compute_weights(self, x.dtype)
         if not self.transposed:
             if f > 1:
                 x = torch.repeat_interleave(x, f, dim=1)
-            return conv1d(x, self.weight, self.bias, stride=1, causal=False)
+            return conv1d(x, weight, bias, stride=1, causal=False)
         return conv_transpose1d(
-            x, self.weight, self.bias,
+            x, weight, bias,
             stride=f, padding=f // 2 + f % 2, output_padding=f % 2,
         )

@@ -1,9 +1,10 @@
 """Mixed-precision Linear (port of jen1_tpu/ops/linear.py).
 
-The weight is stored fp32 and cast to the activation dtype at use; the
-product accumulates in fp32 (cuBLAS does so for bf16 inputs). A subclass of
-`torch.nn.Linear`, so that DTensor's tensor-parallel styles take it
-(parallel/mesh.py); its own init and forward replace nn.Linear's.
+The weight is stored fp32 and read at the activation dtype: its staged
+copy (ops/staging.py) or a cast at the call; the product accumulates in
+fp32 (cuBLAS does so for bf16 inputs). A subclass of `torch.nn.Linear`, so
+that DTensor's tensor-parallel styles take it (parallel/mesh.py); its own
+init and forward replace nn.Linear's.
 """
 
 from __future__ import annotations
@@ -13,10 +14,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from jen1_tpu_torch.ops.initializers import torch_uniform_
+from jen1_tpu_torch.ops.staging import compute_weights
 
 
 class Linear(nn.Linear):
     """torch.nn.Linear semantics and init; weight (out, in)."""
+
+    staged_reads = (("weight", False), ("bias", False))
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True):
         nn.Module.__init__(self)  # nn.Linear's would allocate and initialise
@@ -31,5 +35,4 @@ class Linear(nn.Linear):
             torch_uniform_(self.bias, self.in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return F.linear(x, *compute_weights(self, x.dtype))

@@ -28,8 +28,9 @@ host) may call the CUDA API while one thread captures.
 
 Launch counters. The kernel wrappers count their launches in Python
 (`COUNTERS` of ops/flash_attention.py, ops/int8_matmul.py and ops/norm.py,
-whose `PLAIN_CUDA` counts its plain routes on the card, and the DiT's
-forwards and self-attention routes in models/dit.py), which under a
+whose `PLAIN_CUDA` counts its plain routes on the card, the DiT's
+forwards and self-attention routes in models/dit.py, and the weights read
+from staged copies or cast at the call in ops/staging.py), which under a
 graph runs only at capture. A program records the counters' deltas over its
 capture, takes them back (a capture launches nothing) and adds them at every
 replay, so the counts stay the kernels' launches on the card.
@@ -82,10 +83,11 @@ def _side_stream(device: torch.device) -> "torch.cuda.Stream":
 
 def _counters() -> Dict[Tuple[object, str], int]:
     from jen1_tpu_torch.models import dit
-    from jen1_tpu_torch.ops import flash_attention, int8_matmul, norm
+    from jen1_tpu_torch.ops import flash_attention, int8_matmul, norm, staging
 
     return {(mod, name): getattr(mod, name)
-            for mod in (flash_attention, int8_matmul, norm, dit) for name in mod.COUNTERS}
+            for mod in (flash_attention, int8_matmul, norm, dit, staging)
+            for name in mod.COUNTERS}
 
 
 def _end_failed_capture(stream: "torch.cuda.Stream", side: "torch.cuda.Stream", pool) -> None:

@@ -19,7 +19,9 @@ kernels are held against their plain versions at the bars of chip_smoke.py:
     sum the same exact products (bf16 x int8 fits an fp32) in other orders.
   * Samplers as CUDA graphs (utils/cuda_graphs.py): a graphed request
     against the same request under disable_graphs() within 1e-5 of
-    max|latent| (the same kernels on the same inputs; equal bits expected).
+    max|latent| (the same kernels on the same inputs; equal bits expected),
+    also after the weights were written in place (ops/staging.py refills
+    the staged copies the graphs read).
   * K5 (GroupNorm + FiLM + SiLU): against its plain version on the card
     elementwise within one bf16 step (2^-7 relative; 2^-18 in fp32) of
     each term the difference passes through (the FiLM's product and sum,
@@ -886,13 +888,9 @@ def test_group_norm_launches_counted_by_replay(cuda_device):
     assert jen1.graphs.captures == 1 and jen1.graphs.replays == 3 + 4
 
 
-def test_graphed_bf16_step_launches_no_layout_kernels(cuda_device):
-    """A bf16-compute tiny Jen1's graphed sampling steps under the profiler:
-    no cuDNN NCHW->NHWC transpose and no PyTorch GroupNorm moments, and K5's
-    kernels are there."""
+def bf16_tiny_jen1():
+    """A tiny Jen1 on the card at bf16 compute over fp32 weights."""
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     from jen1_tpu_torch.api.generation import Jen1
     from jen1_tpu_torch.conditioning.conditioners import MultiConditioner, T5Conditioner
@@ -902,8 +900,17 @@ def test_graphed_bf16_step_launches_no_layout_kernels(cuda_device):
     cfg.model_config = dataclasses.replace(cfg.model_config, dtype="bfloat16")
     t5 = T5Conditioner(16, "tiny-test", cfg.model_config.context_embedding_max_length,
                        device="cuda")
-    jen1 = Jen1(sample_rate=1600, config=cfg, codec=tiny_codecs()[1],
+    return Jen1(sample_rate=1600, config=cfg, codec=tiny_codecs()[1],
                 conditioner=MultiConditioner({"prompt": t5}), device="cuda")
+
+
+def test_graphed_bf16_step_launches_no_layout_kernels(cuda_device):
+    """A bf16-compute tiny Jen1's graphed sampling steps under the profiler:
+    no cuDNN NCHW->NHWC transpose and no PyTorch GroupNorm moments, and K5's
+    kernels are there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    jen1 = bf16_tiny_jen1()
     kw = dict(seed=5, steps=4, seconds=13, decode=False)
     jen1.generate("a beautiful song", **kw)  # captures
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -912,6 +919,84 @@ def test_graphed_bf16_step_launches_no_layout_kernels(cuda_device):
     names = [e.key for e in prof.key_averages()]
     assert not [n for n in names if "nchwToNhwc" in n or "RowwiseMoments" in n], names
     assert any("gn_" in n for n in names), names
+
+
+def staged_reads(model) -> int:
+    """Weights one forward reads through ops/staging.py::compute_weights."""
+    return sum(m._parameters.get(leaf) is not None for m in model.modules()
+               if hasattr(m, "staged_reads") for leaf, _ in m.staged_reads)
+
+
+def traced_copies(jen1, kw) -> tuple:
+    """Copy kernels (casts, layout copies) a replayed request launches by
+    its trace, and the casts at the call it counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jen1_tpu_torch.ops import staging
+
+    jen1.generate("a beautiful song", **kw)  # captures
+    before = staging.CAST
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        jen1.generate("a beautiful song", **kw)
+        torch.cuda.synchronize()
+    copies = sum(e.count for e in prof.key_averages() if "copy_kernel" in e.key)
+    return copies, staging.CAST - before
+
+
+def test_graphed_bf16_step_casts_no_weight(cuda_device, monkeypatch):
+    """A bf16-compute tiny Jen1's replayed steps read staged weights: against
+    the same request with staging held off (each weight cast at every
+    call), its trace has exactly as many copy kernels fewer as that request
+    counted casts, and it counts none."""
+    from jen1_tpu_torch.ops import staging
+
+    kw = dict(seed=5, steps=4, seconds=13, decode=False)
+    staged = traced_copies(bf16_tiny_jen1(), kw)
+    monkeypatch.setattr(staging, "stage", lambda model, dtype: None)
+    per_call = traced_copies(bf16_tiny_jen1(), kw)
+    assert staged[1] == 0 and per_call[1] > 0
+    assert per_call[0] - staged[0] == per_call[1], (staged, per_call)
+
+
+def test_staging_counted_at_replay(cuda_device, monkeypatch):
+    """The staging's counters count every replayed forward: each request
+    reads every weight from its staged copy, once a step, and casts none;
+    the first stages every copy, the next refills none."""
+    from jen1_tpu_torch.ops import staging
+
+    for name in staging.COUNTERS:
+        monkeypatch.setattr(staging, name, 0)
+    jen1 = bf16_tiny_jen1()
+    reads = staged_reads(jen1.model)
+    kw = dict(seed=5, steps=4, seconds=13, decode=False)
+    for restaged in (reads, 0):
+        before = tuple(getattr(staging, name) for name in staging.COUNTERS)
+        jen1.generate("a beautiful song", **kw)
+        after = tuple(getattr(staging, name) for name in staging.COUNTERS)
+        assert tuple(b - a for a, b in zip(before, after)) == (4 * reads, 0, restaged)
+    assert jen1.graphs.captures == 1 and jen1.graphs.replays == 3 + 4
+
+
+def test_in_place_weight_update_reaches_the_graphs(cuda_device):
+    """Weights written in place between two graphed requests: the second
+    replays the graphs captured by the first (the staged copies refilled at
+    their addresses) and equals the same request run eagerly on the new
+    weights."""
+    from jen1_tpu_torch.utils.cuda_graphs import disable_graphs
+
+    jen1 = bf16_tiny_jen1()
+    kw = dict(seed=5, steps=4, seconds=13, decode=False)
+    before = jen1.generate("a beautiful song", **kw)
+    with torch.no_grad():
+        for p in jen1.model.parameters():
+            p.mul_(1.01)
+    graphed = jen1.generate("a beautiful song", **kw)
+    with disable_graphs():
+        eager = jen1.generate("a beautiful song", **kw)
+    assert jen1.graphs.captures == 1 and jen1.graphs.replays == 3 + 4
+    assert float(abs(graphed - before).max()) > 0
+    bar = GRAPH_REL_BAR * float(abs(eager).max())
+    assert float(abs(graphed - eager).max()) <= bar
 
 
 GRAPH_REL_BAR = 1e-5  # of max|latent|: graphed against eager on the card
